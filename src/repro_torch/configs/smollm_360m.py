@@ -1,0 +1,31 @@
+# Verbatim copy of repro/configs/smollm_360m.py (the JAX package's original); only import paths may differ.
+"""smollm-360m [dense] — llama-arch small [hf:HuggingFaceTB/SmolLM-135M]."""
+from .base import ArchConfig
+
+CONFIG = ArchConfig(
+    name="smollm-360m",
+    arch_type="dense",
+    n_layers=32,
+    d_model=960,
+    n_heads=15,
+    n_kv_heads=5,
+    d_ff=2560,
+    vocab_size=49152,
+    source="hf:HuggingFaceTB/SmolLM-135M",
+    head_dim=64,
+    tie_embeddings=True,
+    rope_theta=10_000.0,
+    max_seq_len=32_768,
+)
+
+SMOKE = CONFIG.replace(
+    n_layers=2,
+    d_model=192,
+    n_heads=3,
+    n_kv_heads=1,
+    head_dim=64,
+    d_ff=512,
+    vocab_size=512,
+    param_dtype="float32",
+    compute_dtype="float32",
+)
