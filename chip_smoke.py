@@ -9,15 +9,24 @@ result line):
 1. card name and power limit; build every kernel from the sources in the
    checkout (CUDA C++ with nvcc, Triton at its first launch);
 2. every kernel against its plain PyTorch version on the card, over ragged
-   shapes in f32 and bf16, then timed at the serving path's shapes beside
-   the plain version, one library call and the card's bound;
+   shapes in f32 and bf16 (and f16), then timed at the serving path's shapes
+   beside the plain version, one library call and the card's bound;
 3. smollm-360m at full width from a seed: f32 logits through the kernels on
    the card against the same weights through the plain path on the CPU, and
    the bf16 run against the same reference;
-4. profile -> plan -> serve: the forward timed at each batch size, a plan
-   from that measured profile, and 200 requests through the flat serving
-   engine with real forwards, with every kernel's launch count read across
-   the serving run.
+3b. cached decode at full width: smollm-360m (f32 and bf16) and gemma3-1b
+   (f32, its 512-slot local rings wrapped) prefill a KV cache and decode
+   through it, each step against the uncached forward at the same positions,
+   and smollm's first f32 step against the CPU plain path;
+4. profile -> plan -> serve prefill: the forward timed at each batch size, a
+   plan from that measured profile, and 200 requests through the flat
+   serving engine with real forwards;
+5. the same for decode: one decode step against a cache of CTX tokens timed
+   at each batch size beside the analytic decode profile, a plan, and 200
+   requests served by decode steps.
+
+Phases 4 and 5 each set the launch counts to 0 just before serving, read them
+just after, and fail unless every kernel of their path was launched.
 
 It ends with the kernels' JSON record, the card's name and power limit as
 nvidia-smi prints them, and ``{"ok": true, "device": {...}}`` as the last
@@ -33,15 +42,19 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-SEQ = 128          # the serving executor's tokens per request
+SEQ = 128          # the prefill executor's tokens per request
+CTX = 1024         # the decode executor's cache fill: a step attends over CTX tokens
 BATCHES = (1, 2, 4, 8, 16, 32)
 N_REQUESTS = 200
 ARCH = "smollm-360m"
 # rel err max|a - b| / max|b| of a kernel against its plain version, as the
 # JAX package holds its own kernels (tests/test_kernels.py)
-TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+TOL = {"float32": 2e-5, "bfloat16": 2e-2, "float16": 2e-2}
 MODEL_TOL_F32 = 1e-3   # full-width f32 logits, card vs CPU plain path
 MODEL_TOL_BF16 = 5e-2  # full-width bf16 logits vs the f32 CPU reference
+DECODE_TOL_F32 = 5e-3  # cached decode vs the uncached forward, f32 (tests/test_models.py)
+# the kernels each serving path must launch
+PATH_KERNELS = {"prefill": ("fused_rmsnorm", "flash_attention"), "decode": ("fused_rmsnorm", "flash_decode")}
 # card peaks for bound_ms (NVIDIA H100 SXM data sheet, 700 W): bytes/s, and
 # FLOP/s for bf16/f16 on the tensor cores and f32 on the CUDA cores
 HBM_BPS = 3.35e12
@@ -236,6 +249,98 @@ def phase_kernels() -> list[dict]:
     return [rms, attn]
 
 
+def phase_decode_kernel() -> dict:
+    """flash_decode against its plain version over ragged cases, then timed at
+    the serving decode shape (b = 32, ctx = CTX) and at b = 1."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_decode, ref
+
+    rng = np.random.default_rng(5)
+    dev = "cuda"
+
+    def arr(shape, dtype):
+        return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(dev, getattr(torch, dtype))
+
+    def lengths(B, S):  # ragged, with 1 and S among them
+        lens = rng.integers(1, S + 1, B)
+        lens[0] = S if B == 1 else 1
+        lens[-1] = S
+        return torch.from_numpy(lens.astype(np.int32)).to(dev)
+
+    cases = [
+        # (B, S, Hq, Hkv, Dk, Dv, window)
+        (1, 77, 5, 5, 64, 64, None),          # g = 1
+        (3, 1000, 15, 5, 64, 64, None),       # g = 3 (smollm)
+        (32, 1024, 15, 5, 64, 64, None),      # smollm's serving shape
+        (3, 1024, 4, 1, 256, 256, None),      # g = 4, MQA, head_dim 256 (gemma3)
+        (1, 1000, 16, 1, 128, 128, None),     # g = 16
+        (3, 77, 8, 2, 192, 128, None),        # Dk != Dv
+        (3, 1000, 9, 3, 128, 128, 300),       # window
+        (32, 77, 12, 4, 64, 64, 50),          # window, B = 32
+        (2, 100, 4, 2, 40, 40, None),         # rows that are not a multiple of 16 bytes
+        (2, 40, 128, 1, 576, 512, None),      # MLA's absorbed decode: g = 128, Dk 576 / Dv 512
+    ]
+    n = 0
+    for dtype in ("float32", "bfloat16", "float16"):
+        for B, S, Hq, Hkv, Dk, Dv, window in cases:
+            q, k, v = arr((B, Hq, Dk), dtype), arr((B, S, Hkv, Dk), dtype), arr((B, S, Hkv, Dv), dtype)
+            lens = lengths(B, S)
+            err = rel_err(flash_decode(q, k, v, lens, window=window),
+                          ref.decode_attention(q, k, v, lens, window=window))
+            if not err <= TOL[dtype]:
+                raise AssertionError(f"flash_decode {dtype} B={B} S={S} Hq={Hq} Hkv={Hkv} Dk={Dk} Dv={Dv} "
+                                     f"window={window}: rel err {err:.3g}")
+            n += 1
+    for dtype in ("float32", "bfloat16"):  # inputs 8 bytes off a 16-byte boundary: element-wise staging
+        def unaligned(shape):
+            flat = arr((int(np.prod(shape)) + 4,), dtype)
+            return flat[8 // flat.element_size():][: int(np.prod(shape))].view(shape)
+
+        q, k, v = unaligned((3, 15, 64)), unaligned((3, 300, 5, 64)), unaligned((3, 300, 5, 64))
+        lens = lengths(3, 300)
+        err = rel_err(flash_decode(q, k, v, lens), ref.decode_attention(q, k, v, lens))
+        if not err <= TOL[dtype]:
+            raise AssertionError(f"flash_decode misaligned {dtype}: rel err {err:.3g}")
+        n += 1
+    torch.cuda.synchronize()
+    log(f"flash_decode: {n} cases within tolerance")
+
+    recs = {}
+    for B in (32, 1):  # the serving decode shape, then one sequence
+        S, Hq, Hkv, Dh = CTX, 15, 5, 64
+        q, k, v = arr((B, Hq, Dh), "bfloat16"), arr((B, S, Hkv, Dh), "bfloat16"), arr((B, S, Hkv, Dh), "bfloat16")
+        lens = torch.full((B,), S, dtype=torch.int32, device=dev)
+        # every slot is live: K and V read once, q read and o written once
+        nb = (k.numel() + v.numel() + 2 * q.numel()) * 2 + lens.numel() * 4
+        b_ms, b_by = bound_ms(nb, 2.0 * B * Hq * S * (Dh + Dh), "float32")  # f32 FMAs on the CUDA cores
+        n = input_sets(nb)
+        sets = [(q, k, v)] + [tuple(x.clone() for x in (q, k, v)) for _ in range(n - 1)]
+        mask = (torch.arange(S, device=dev)[None, :] < lens[:, None])[:, None, None, :]  # (B, 1, 1, S)
+        sdpa = [(x[:, :, None], kk.transpose(1, 2), vv.transpose(1, 2)) for x, kk, vv in sets]
+        r = {
+            "name": "flash_decode", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_decode.cu",
+            "replaces": "src/repro/kernels/decode_attention.py:122",
+            "max_abs_err": float((flash_decode(q, k, v, lens).float()
+                                  - ref.decode_attention(q, k, v, lens).float()).abs().max()),
+            "ms": timed_ms(lambda i: flash_decode(*sets[i], lens), n),
+            "plain_ms": timed_ms(lambda i: ref.decode_attention(*sets[i], lens), n),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": timed_ms(
+                lambda i: F.scaled_dot_product_attention(*sdpa[i], attn_mask=mask, enable_gqa=True), n),
+            "shape": f"q ({B}, {Hq}, {Dh}), k/v ({B}, {S}, {Hkv}, {Dh}) bf16, lengths {S}",
+        }
+        del sets, sdpa
+        log(f"{r['name']}: kernel_ms={r['ms']:.5f} plain_ms={r['plain_ms']:.5f} "
+            f"library_ms={r['library_ms']:.5f} bound_ms={r['bound_ms']:.5f} ({r['bound_by']}) "
+            f"max_abs_err={r['max_abs_err']:.3g} at {r['shape']}")
+        recs[B] = r
+    return recs[32]
+
+
 # ------------------------------------------------------------------ phase 3
 def phase_model():
     import numpy as np
@@ -268,10 +373,75 @@ def phase_model():
     return m16
 
 
+# ----------------------------------------------------------------- phase 3b
+def cached_decode_errs(model, toks, n_prefill: int, max_seq: int):
+    """Prefill ``n_prefill`` tokens into a fresh cache, decode the rest one
+    by one; the rel err of each step's logits against the uncached forward
+    at the same position, and the first step's logits."""
+    import torch
+
+    full = model(toks).logits
+    cache = model.init_cache(toks.shape[0], max_seq)
+    model(toks[:, :n_prefill], cache=cache, idx=0, compute_logits=False)
+    errs, first = [], None
+    for i in range(n_prefill, toks.shape[1]):
+        out = model(toks[:, i:i + 1], cache=cache, idx=i)
+        got = out.logits[:, 0]
+        if not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"{model.cfg.name}: non-finite decode logits at position {i}")
+        errs.append(rel_err(got, full[:, i]))
+        first = got if first is None else first
+    return errs, first
+
+
+def phase_cached_decode(m16) -> None:
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+
+    cfg = get_config(ARCH)
+    cfg32 = cfg.replace(param_dtype="float32", compute_dtype="float32")
+    toks = torch.from_numpy(np.random.default_rng(2).integers(0, cfg.vocab_size, (2, 36))).cuda()
+    m32 = Model(cfg32, seed=0, device="cuda")
+    errs, first = cached_decode_errs(m32, toks, 32, 64)
+    log(f"cached decode {ARCH} f32: prefill 32 into 64 slots, 4 steps vs uncached forward "
+        f"rel err {max(errs):.3g} (limit {DECODE_TOL_F32})")
+    if not max(errs) <= DECODE_TOL_F32:
+        raise AssertionError(f"{ARCH} f32 cached decode rel err {errs}")
+    errs16, _ = cached_decode_errs(m16, toks, 32, 64)
+    log(f"cached decode {ARCH} bf16: 4 steps vs the uncached bf16 forward rel err {max(errs16):.3g} "
+        f"(limit {MODEL_TOL_BF16})")
+    if not max(errs16) <= MODEL_TOL_BF16:
+        raise AssertionError(f"{ARCH} bf16 cached decode rel err {errs16}")
+    m32.to("cpu")  # the same weights through the plain path
+    cache = m32.init_cache(2, 64)
+    m32(toks[:, :32].cpu(), cache=cache, idx=0, compute_logits=False)
+    want = m32(toks[:, 32:33].cpu(), cache=cache, idx=32).logits[:, 0]
+    e = rel_err(first.cpu(), want)
+    log(f"cached decode {ARCH} f32 first step: card vs CPU plain rel err {e:.3g} (limit {MODEL_TOL_F32})")
+    if not e <= MODEL_TOL_F32:
+        raise AssertionError(f"{ARCH} f32 first decode step, card vs CPU: rel err {e:.3g}")
+    del m32, cache
+
+    g = get_config("gemma3-1b").replace(param_dtype="float32", compute_dtype="float32")
+    toks = torch.from_numpy(np.random.default_rng(3).integers(0, g.vocab_size, (1, 604))).cuda()
+    mg = Model(g, seed=0, device="cuda")
+    errs, _ = cached_decode_errs(mg, toks, 600, 604)  # local rings of 512 slots wrap by 600 % 512 = 88
+    log(f"cached decode gemma3-1b f32: prefill 600 (512-slot rings wrapped by 88), 4 steps vs uncached "
+        f"forward rel err {max(errs):.3g} (limit {DECODE_TOL_F32})")
+    if not max(errs) <= DECODE_TOL_F32:
+        raise AssertionError(f"gemma3-1b f32 cached decode rel err {errs}")
+    del mg
+    torch.cuda.empty_cache()
+
+
 # ------------------------------------------------------------------ phase 4
-def forward_breakdown(executor, batch: int, top: int = 8) -> None:
-    """Device time by kernel over one forward, from torch.profiler, and the
-    share of the forward's wall time the device was busy."""
+def forward_breakdown(executor, batch: int, label: str, top: int = 8) -> None:
+    """Device time by kernel over one executor call (a forward or a decode
+    step), from torch.profiler, and the share of its wall time the device
+    was busy."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -287,13 +457,16 @@ def forward_breakdown(executor, batch: int, top: int = 8) -> None:
             row[0] += e.time_range.elapsed_us() / 1e3  # the kernel's own interval, us -> ms
             row[1] += 1
     busy = sum(ms for ms, _ in by_name.values())
-    log(f"forward b={batch} seq={SEQ}: wall {wall * 1e3:.3f} ms, device busy {busy:.3f} ms "
+    log(f"{label} b={batch}: wall {wall * 1e3:.3f} ms, device busy {busy:.3f} ms "
         f"({100 * busy / (wall * 1e3):.1f}%), {sum(n for _, n in by_name.values())} kernels")
     for name, (ms, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]:
         log(f"  {ms:9.3f} ms {n:5d}x  {name[:90]}")
 
 
-def phase_serve(model) -> dict[str, int]:
+def phase_serve(model, mode: str) -> dict[str, int]:
+    """Profile the ``mode`` step ("prefill": a forward on SEQ tokens,
+    "decode": one step against CTX cached tokens), plan from that profile,
+    serve N_REQUESTS, and return the launch counts of the serving run."""
     from repro_torch.configs import get_config
     from repro_torch.core import Leaf, Planner, Workload, series
     from repro_torch.core.dag import AppDAG
@@ -303,11 +476,13 @@ def phase_serve(model) -> dict[str, int]:
     from repro_torch.serving import ServingEngine
 
     cfg = get_config(ARCH)
-    profile, executor = profile_model(ARCH, batches=BATCHES, seq=SEQ, model=model)
-    forward_breakdown(executor, max(BATCHES))
+    seq = SEQ if mode == "prefill" else CTX
+    profile, executor = profile_model(ARCH, batches=BATCHES, seq=SEQ, model=model, mode=mode, ctx=CTX)
+    label = f"forward seq={SEQ}" if mode == "prefill" else f"decode step ctx={CTX}"
+    forward_breakdown(executor, max(BATCHES), label)
     for c in sorted(profile.configs, key=lambda c: c.batch):
-        analytic = module_duration(cfg, c.batch, SEQ, H100_SXM)
-        log(f"profile b={c.batch}: measured {c.duration * 1e3:.3f} ms, analytic-h100 "
+        analytic = module_duration(cfg, c.batch, seq, H100_SXM, mode=mode)
+        log(f"{mode} profile b={c.batch}: measured {c.duration * 1e3:.3f} ms, analytic-h100 "
             f"{analytic * 1e3:.3f} ms, ratio {c.duration / analytic:.3f}")
     big = max(profile.configs, key=lambda c: c.batch)
     rate = 0.5 * big.batch / big.duration          # half one card's throughput
@@ -322,14 +497,14 @@ def phase_serve(model) -> dict[str, int]:
     res = engine.run(N_REQUESTS, rate)
     launches = {k.__name__: k.launches for k in KERNELS}
     st = res.module_stats[ARCH]
-    log(f"served {len(res.e2e_latencies)}/{N_REQUESTS} requests at {rate:.1f}/s: attainment "
+    log(f"{mode}: served {len(res.e2e_latencies)}/{N_REQUESTS} requests at {rate:.1f}/s: attainment "
         f"{res.attainment:.4f} p99 {res.p99 * 1e3:.3f} ms (slo {slo * 1e3:.3f} ms) "
         f"batches {st.batches}; launches while serving {launches}")
     if len(res.e2e_latencies) != N_REQUESTS:
         raise AssertionError(f"{len(res.e2e_latencies)} of {N_REQUESTS} requests completed")
-    idle = [name for name, n in launches.items() if n <= 0]
+    idle = [name for name in PATH_KERNELS[mode] if launches[name] <= 0]
     if idle:
-        raise AssertionError(f"kernels not launched while serving: {idle}")
+        raise AssertionError(f"{mode} path: kernels not launched while serving: {idle}")
     return launches
 
 
@@ -344,11 +519,13 @@ def main() -> int:
         print("chip_smoke.py: no CUDA device", file=sys.stderr)
         return 1
     smi = phase_card_and_build()
-    kernels = phase_kernels()
+    kernels = phase_kernels() + [phase_decode_kernel()]
     model = phase_model()
-    launches = phase_serve(model)
+    phase_cached_decode(model)
+    by_path = {mode: phase_serve(model, mode) for mode in ("prefill", "decode")}
     for k in kernels:
-        k["launches"] = launches[k["name"]]
+        k["launches_by_path"] = {mode: n[k["name"]] for mode, n in by_path.items()}
+        k["launches"] = sum(k["launches_by_path"].values())
         del k["shape"]
     log(json.dumps({"kernels": kernels}))
     log(smi)

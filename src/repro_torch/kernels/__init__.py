@@ -6,10 +6,11 @@ semantics of record; `ops` is what the models call.  Each wrapper counts its
 launches in ``<wrapper>.launches``.
 """
 from . import ops, ref
+from .decode_attention import flash_decode
 from .flash_attention import flash_attention
 from .rmsnorm import fused_rmsnorm
 
-KERNELS = (fused_rmsnorm, flash_attention)
+KERNELS = (fused_rmsnorm, flash_attention, flash_decode)
 
 
 def reset_launch_counts() -> None:
@@ -17,4 +18,4 @@ def reset_launch_counts() -> None:
         k.launches = 0
 
 
-__all__ = ["KERNELS", "flash_attention", "fused_rmsnorm", "ops", "ref", "reset_launch_counts"]
+__all__ = ["KERNELS", "flash_attention", "flash_decode", "fused_rmsnorm", "ops", "ref", "reset_launch_counts"]

@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import torch
 
+from .decode_attention import flash_decode
 from .flash_attention import flash_attention
 from .rmsnorm import fused_rmsnorm
 
@@ -20,6 +21,10 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor, *, eps: float = 1e-6, gemma: bool 
 
 def attention(q, k, v, *, causal: bool = True, window: int | None = None, scale: float | None = None):
     return flash_attention(q, k, v, causal=causal, window=window, scale=scale)
+
+
+def decode_attention(q, k_cache, v_cache, lengths, *, window: int | None = None, scale: float | None = None):
+    return flash_decode(q, k_cache, v_cache, lengths, window=window, scale=scale)
 
 
 def row_parallel_dense(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:

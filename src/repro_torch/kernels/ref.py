@@ -71,3 +71,35 @@ def attention(
     p = torch.softmax(logits, dim=-1)
     out = torch.einsum("bhgqk,bkhd->bqhgd", p, v.float())
     return out.reshape(B, Sq, Hq, Dv).to(q.dtype)
+
+
+def decode_attention(
+    q: torch.Tensor,        # (B, Hq, Dk): one new token per sequence
+    k_cache: torch.Tensor,  # (B, S, Hkv, Dk)
+    v_cache: torch.Tensor,  # (B, S, Hkv, Dv)
+    lengths: torch.Tensor,  # (B,) valid cache entries (this token included)
+    *,
+    window: int | None = None,
+    scale: float | None = None,
+) -> torch.Tensor:
+    """Single-step cache attention.  Returns (B, Hq, Dv) in ``q.dtype``.
+
+    Cache slot ``pos`` is live when ``pos < length`` and, given a window,
+    ``pos > length - 1 - window``.
+    """
+    B, Hq, Dk = q.shape
+    _, S, Hkv, _ = k_cache.shape
+    Dv = v_cache.shape[-1]
+    g = Hq // Hkv
+    scale = scale if scale is not None else Dk ** -0.5
+    qf = q.float().reshape(B, Hkv, g, Dk)
+    logits = torch.einsum("bhgd,bshd->bhgs", qf, k_cache.float()) * scale
+    pos = torch.arange(S, device=q.device)[None, :]
+    lens = lengths.to(q.device)[:, None]
+    valid = pos < lens
+    if window is not None:
+        valid &= pos > lens - 1 - window
+    logits = torch.where(valid[:, None, None, :], logits, torch.full_like(logits, NEG_INF))
+    p = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bhgs,bshd->bhgd", p, v_cache.float())
+    return out.reshape(B, Hq, Dv).to(q.dtype)

@@ -22,6 +22,7 @@ from typing import Callable
 import torch
 
 from ..configs import get_config
+from ..configs.base import InputShape
 from ..core import Leaf, Workload, series
 from ..core.dag import AppDAG
 from ..core.harpagon import Planner
@@ -30,6 +31,7 @@ from ..kernels import KERNELS
 from ..models import Model
 from ..profiling import H100_SXM, arch_profile
 from ..serving import ServingEngine
+from .specs import make_decode_fn, make_prefill_fn
 
 
 def make_executor(model: Model, seq: int) -> Callable[[int], None]:
@@ -39,6 +41,33 @@ def make_executor(model: Model, seq: int) -> Callable[[int], None]:
 
     def executor(b: int) -> None:
         model(torch.zeros((b, seq), dtype=torch.long, device=device))
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+    return executor
+
+
+def make_decode_executor(model: Model, ctx: int, max_batch: int) -> Callable[[int], None]:
+    """``executor(b)`` runs one decode step at fill level ``ctx - 1`` for the
+    first ``b`` sequences of a cache of ``max_batch`` x ``ctx`` and returns when
+    the device is done.
+
+    The cache is allocated once and filled once, here, by a prefill of
+    ``ctx - 1`` tokens, outside any timed window.  Every step writes the same
+    slot with the same values, so repeated steps time the same work.  The batch
+    slices of a (B, S, H, D) cache are contiguous views, and the step writes
+    through them into the one cache.
+    """
+    device = model.device
+    prefill = make_prefill_fn(model, InputShape("decode_fill", ctx, max_batch, "prefill"))
+    _, cache = prefill({"tokens": torch.zeros((max_batch, ctx - 1), dtype=torch.long, device=device)})
+    decode = make_decode_fn(model)
+
+    def executor(b: int) -> None:
+        if not 1 <= b <= max_batch:
+            raise ValueError(f"decode batch {b} outside 1..{max_batch}")
+        view = [{name: t[:b] for name, t in layer.items()} for layer in cache]
+        decode({"tokens": torch.zeros((b, 1), dtype=torch.long, device=device), "cache": view, "idx": ctx - 1})
         if device.type == "cuda":
             torch.cuda.synchronize(device)
 
@@ -55,15 +84,25 @@ def profile_model(
     seed: int = 0,
     reps: int = 3,
     model: Model | None = None,
+    mode: str = "prefill",
+    ctx: int = 1024,
 ) -> tuple[ModuleProfile, Callable[[int], None]]:
-    """Offline profiling pass: time the real forward at each batch size.
+    """Offline profiling pass: time the real step at each batch size.
 
-    On the card the profile's hardware is ``h100-sxm`` (the spec the
-    analytic profiles use); on the CPU it is ``cpu``.
+    ``mode="prefill"`` times the forward on (b, seq) tokens; ``mode="decode"``
+    times one decode step against a cache filled to ``ctx - 1`` tokens, the
+    measured counterpart of ``arch_profile(mode="decode")``.  On the card the
+    profile's hardware is ``h100-sxm`` (the spec the analytic profiles use);
+    on the CPU it is ``cpu``.
     """
+    if mode not in ("prefill", "decode"):
+        raise ValueError(f"mode must be 'prefill' or 'decode', got {mode!r}")
     if model is None:
         model = Model(get_config(arch, smoke=smoke), seed=seed, device=device)
-    ex = make_executor(model, seq)
+    if mode == "decode":
+        ex = make_decode_executor(model, ctx, max(batches))
+    else:
+        ex = make_executor(model, seq)
     hw = H100_SXM.name if model.device.type == "cuda" else "cpu"
     rows = []
     for b in batches:

@@ -1,4 +1,4 @@
-from .bridge import load_jax_params
+from .bridge import load_jax_cache, load_jax_params
 from .model import Model, ModelOutput, segmentize
 
-__all__ = ["Model", "ModelOutput", "load_jax_params", "segmentize"]
+__all__ = ["Model", "ModelOutput", "load_jax_cache", "load_jax_params", "segmentize"]

@@ -5,7 +5,8 @@ initializes them under ``jax.vmap`` and runs them under ``lax.scan``); this
 port keeps one module per layer, so the bridge unstacks them.  Every leaf of
 the tree must land on a parameter of the same shape and every parameter
 must be written: anything else raises.  Typical source:
-``jax.tree.map(np.asarray, params)``.
+``jax.tree.map(np.asarray, params)``.  `load_jax_cache` does the same for a
+KV cache from the JAX model's ``init_cache`` or a cached forward.
 """
 from __future__ import annotations
 
@@ -74,3 +75,21 @@ def load_jax_params(model: Model, tree: Mapping[str, Any]) -> Model:
     if missing:
         raise KeyError(f"torch parameters not in the JAX tree: {missing}")
     return model
+
+
+def load_jax_cache(model: Model, jax_cache: Any) -> list[dict]:
+    """The JAX model's KV cache (a list of segments, each a tuple of per-layer
+    ``{"k", "v"}`` dicts, stacked on a leading axis where the segment repeats)
+    as the port's per-layer list of dicts of tensors on the model's device."""
+    if len(jax_cache) != len(model.segments):
+        raise ValueError(f"{len(jax_cache)} JAX cache segments, torch model has {len(model.segments)}")
+    out: list[dict] = []
+    for si, (pattern, repeats) in enumerate(model.segments):
+        seg = jax_cache[si]
+        if len(seg) != len(pattern):
+            raise ValueError(f"cache segment {si}: {len(seg)} layers, pattern has {len(pattern)}")
+        for r in range(repeats):
+            take = (lambda a: a) if repeats == 1 else (lambda a, r=r: np.asarray(a)[r])
+            for j in range(len(pattern)):
+                out.append({name: _tensor(take(seg[j][name])).to(model.device) for name in ("k", "v")})
+    return out

@@ -127,6 +127,17 @@ def _qk_norm(cfg: ArchConfig, p: Params, q: torch.Tensor, k: torch.Tensor):
     )
 
 
+def attn_cache_init(cfg: ArchConfig, spec: LayerSpec, batch: int, max_seq: int, dtype, device) -> dict:
+    """Zeroed (B, size, Hkv, Dh) K and V caches; windowed layers keep a ring
+    of ``min(max_seq, window)`` slots."""
+    size = min(max_seq, spec.window) if spec.window else max_seq
+    Hkv, Dh = cfg.n_kv_heads, cfg.hdim
+    return {
+        "k": torch.zeros((batch, size, Hkv, Dh), dtype=dtype, device=device),
+        "v": torch.zeros((batch, size, Hkv, Dh), dtype=dtype, device=device),
+    }
+
+
 def attn_forward(
     p: Params,
     cfg: ArchConfig,
@@ -134,15 +145,21 @@ def attn_forward(
     x: torch.Tensor,  # (B, S, d)
     positions: torch.Tensor,
     *,
-    cache: Params | None = None,
-    idx: int | None = None,
-) -> tuple[torch.Tensor, None]:
-    """Attention without a KV cache (train / prefill); returns (y, None)."""
-    if cache is not None:
-        raise NotImplementedError(
-            "KV-cache prefill and decode arrive with the decode slice "
-            "(ROADMAP queue 1, item 4: cached decode on flash_decode)"
-        )
+    cache: dict | None = None,
+    idx: int | None = None,  # cache fill level (decode)
+) -> tuple[torch.Tensor, dict | None]:
+    """Attention; returns (y, cache).
+
+    Without a cache (train / prefill) the cache returned is None.  With one,
+    ``S > 1`` is a prefill that writes the last ``size`` keys and values at
+    slot 0 (rolled on a ring so that absolute position p lands in slot
+    p % size), and ``S == 1`` a decode step that writes slot ``idx % size``
+    on a ring, ``min(idx, size - 1)`` otherwise, then attends over the cache
+    with `ops.decode_attention`.  Unlike the JAX package, which returns new
+    arrays, the writes go in place into ``cache["k"]`` and ``cache["v"]``
+    (copying the whole cache each step would move more bytes than the decode
+    kernel reads), and the same dict is returned.
+    """
     B, S, _ = x.shape
     H, Hkv, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.hdim
     theta = spec.rope_theta or cfg.rope_theta
@@ -152,9 +169,31 @@ def attn_forward(
     q, k = _qk_norm(cfg, p, q, k)
     q = apply_rope(q, positions, theta, cfg.mrope_sections)
     k = apply_rope(k, positions, theta, cfg.mrope_sections)
-    out = ops.attention(q, k, v, causal=True, window=spec.window)
+
+    if cache is None or S > 1:
+        if cache is not None:  # prefill into the cache
+            size = cache["k"].shape[1]
+            k_in, v_in = k[:, -size:], v[:, -size:]
+            if spec.window and S > size:
+                # ring buffer: absolute position p lives in slot p % size
+                k_in = torch.roll(k_in, S % size, dims=1)
+                v_in = torch.roll(v_in, S % size, dims=1)
+            cache["k"][:, : k_in.shape[1]] = k_in
+            cache["v"][:, : v_in.shape[1]] = v_in
+        out = ops.attention(q, k, v, causal=True, window=spec.window)
+    else:  # single-token decode
+        size = cache["k"].shape[1]
+        # dynamic_update_slice clamps its start: mirror min(idx, size - 1)
+        write = idx % size if spec.window else min(idx, size - 1)
+        cache["k"][:, write] = k[:, 0]
+        cache["v"][:, write] = v[:, 0]
+        lengths = torch.full((B,), min(idx + 1, size), dtype=torch.int32, device=x.device)
+        ring = spec.window is not None
+        out = ops.decode_attention(
+            q[:, 0], cache["k"], cache["v"], lengths, window=None if ring else spec.window,
+        )[:, None]
     y = ops.row_parallel_dense(out.reshape(B, S, H * Dh), p["o"]["w"])
-    return y, None
+    return y, cache
 
 
 # --------------------------------------------------------------------- MLP

@@ -75,9 +75,10 @@ def _block_init(gen: torch.Generator, cfg: ArchConfig, spec: LayerSpec, dtype) -
     return p
 
 
-def _block_apply(p, cfg: ArchConfig, spec: LayerSpec, x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
+def _block_apply(p, cfg: ArchConfig, spec: LayerSpec, x: torch.Tensor, positions: torch.Tensor,
+                 cache: dict | None = None, idx: int | None = None) -> torch.Tensor:
     h = Lyr.apply_norm(cfg, p["mix_norm"], x)
-    y, _ = Lyr.attn_forward(p["mix"], cfg, spec, h, positions)
+    y, _ = Lyr.attn_forward(p["mix"], cfg, spec, h, positions, cache=cache, idx=idx)
     x = x + y
     if spec.ffn != "none":
         h = Lyr.apply_norm(cfg, p["ffn_norm"], x)
@@ -125,15 +126,30 @@ class Model(nn.Module):
     def device(self) -> torch.device:
         return self.embed["w"].device
 
+    def init_cache(self, batch: int, max_seq: int, dtype=None) -> list[dict]:
+        """One zeroed K/V cache per layer, in layer order, in ``dtype``
+        (default: the compute dtype) on the model's device.  `forward` fills
+        it in place."""
+        dtype = dtype or self.cdtype
+        return [Lyr.attn_cache_init(self.cfg, spec, batch, max_seq, dtype, self.device) for spec in self.specs]
+
     def forward(
         self,
         tokens: torch.Tensor | None = None,
         *,
         embeds: torch.Tensor | None = None,
         positions: torch.Tensor | None = None,
+        cache: list[dict] | None = None,
+        idx: int | None = None,
         return_hidden: bool = False,
         compute_logits: bool = True,
     ) -> ModelOutput:
+        """Logits of ``tokens`` (or ``embeds``) at positions ``idx, idx+1, ...``.
+
+        With ``cache`` (from `init_cache`) the attention layers prefill it
+        (S > 1) or decode one token against it (S == 1) in place, and the
+        output carries the same cache object.
+        """
         cfg = self.cfg
         if embeds is None:
             x = Lyr.embed(self.embed, cfg, tokens, self.cdtype)
@@ -141,16 +157,17 @@ class Model(nn.Module):
             x = embeds.to(self.cdtype)
         B, S, _ = x.shape
         if positions is None:
-            positions = torch.arange(S, device=x.device)[None, :].expand(B, S)
+            positions = (torch.arange(S, device=x.device) + (idx or 0))[None, :].expand(B, S)
             if cfg.mrope_sections is not None:
                 positions = positions.expand(3, B, S)
-        for spec, blk in zip(self.specs, self.layers):
-            x = _block_apply(blk, cfg, spec, x, positions)
+        layer_caches = cache if cache is not None else [None] * len(self.layers)
+        for spec, blk, c in zip(self.specs, self.layers, layer_caches):
+            x = _block_apply(blk, cfg, spec, x, positions, c, idx)
         x = Lyr.apply_norm(cfg, self.final_norm, x)
         hidden = x if return_hidden else None
         logits = self.unembed(x) if compute_logits else None
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
-        return ModelOutput(logits, None, aux, hidden)
+        return ModelOutput(logits, cache, aux, hidden)
 
     def unembed(self, x: torch.Tensor) -> torch.Tensor:
         if self.cfg.tie_embeddings:

@@ -89,12 +89,6 @@ def test_attn_forward_matches_jax(arch, layer):
     assert rel_err(got.numpy(), exp) < F32_TOL
 
 
-def test_attn_forward_cache_path_waits_for_the_decode_slice():
-    cfg = SMOKE_ARCHS["smollm-360m"]
-    with pytest.raises(NotImplementedError, match="decode"):
-        L.attn_forward({}, cfg, cfg.layer_specs()[0], torch.zeros(1, 1, cfg.d_model), torch.zeros(1, 1), cache={})
-
-
 @pytest.fixture(scope="module")
 def smollm_jax():
     """JAX smollm-360m (smoke) with Model.init(key 0) parameters, as numpy."""
