@@ -10,7 +10,8 @@ result line):
    checkout (CUDA C++ with nvcc, Triton at its first launch);
 2. every kernel against its plain PyTorch version on the card, over ragged
    shapes in f32 and bf16 (and f16), then timed at the serving path's shapes
-   beside the plain version, one library call and the card's bound;
+   beside the plain version, one library call (where one exists) and the
+   card's bound;
 3. smollm-360m at full width from a seed: f32 logits through the kernels on
    the card against the same weights through the plain path on the CPU, and
    the bf16 run against the same reference;
@@ -18,6 +19,11 @@ result line):
    (f32, its 512-slot local rings wrapped) prefill a KV cache and decode
    through it, each step against the uncached forward at the same positions,
    and smollm's first f32 step against the CPU plain path;
+3c. xlstm-125m at full width from a seed: f32 logits at (2, XLSTM_SEQ) tokens
+   (several mLSTM chunks) against the CPU plain path, each bf16 block on the
+   card against the f32 block on the CPU fed the same input, and its
+   recurrent cache: prefill XLSTM_SEQ tokens, then 4 decode steps, each
+   against the uncached forward;
 4. profile -> plan -> serve prefill: the forward timed at each batch size, a
    plan from that measured profile, and 200 requests through the flat
    serving engine with real forwards;
@@ -25,8 +31,9 @@ result line):
    at each batch size beside the analytic decode profile, a plan, and 200
    requests served by decode steps.
 
-Phases 4 and 5 each set the launch counts to 0 just before serving, read them
-just after, and fail unless every kernel of their path was launched.
+Phases 4 and 5 run for smollm-360m and then for xlstm-125m.  Each sets the
+launch counts to 0 just before serving, reads them just after, and fails
+unless every kernel of its path (PATH_KERNELS) was launched.
 
 It ends with the kernels' JSON record, the card's name and power limit as
 nvidia-smi prints them, and ``{"ok": true, "device": {...}}`` as the last
@@ -47,16 +54,36 @@ CTX = 1024         # the decode executor's cache fill: a step attends over CTX t
 BATCHES = (1, 2, 4, 8, 16, 32)
 N_REQUESTS = 200
 ARCH = "smollm-360m"
+XLSTM = "xlstm-125m"
+XLSTM_SEQ = 300    # xlstm model checks: crosses the mLSTM kernel's chunk boundaries
 # rel err max|a - b| / max|b| of a kernel against its plain version, as the
 # JAX package holds its own kernels (tests/test_kernels.py)
 TOL = {"float32": 2e-5, "bfloat16": 2e-2, "float16": 2e-2}
+# chunked_mlstm, as the JAX package holds its Pallas mLSTM (tests/test_kernels.py:176):
+# looser than TOL because the weights are exponentials of long cumulative sums
+MLSTM_TOL = {"float32": 2e-4, "bfloat16": 3e-2, "float16": 3e-2}
 MODEL_TOL_F32 = 1e-3   # full-width f32 logits, card vs CPU plain path
-MODEL_TOL_BF16 = 5e-2  # full-width bf16 logits vs the f32 CPU reference
+MODEL_TOL_BF16 = 5e-2  # full-width bf16 logits (xlstm: each bf16 block) vs the f32 CPU reference
+# xlstm-125m's whole bf16 model: rounding the same weights to bf16 moves its
+# logits far past MODEL_TOL_BF16, in the JAX package too.  Its own distance
+# at full width on the same tokens (tools/xlstm_bf16_drift.py, the largest
+# over seeds 0, 1 and 2 on the CPU), and the factor within which the port's
+# distance on the card must stay (as tests/test_torch_xlstm.py holds it at
+# the smoke config).
+XLSTM_BF16_REPRO = 0.584967
+XLSTM_BF16_FACTOR = 2.0
 DECODE_TOL_F32 = 5e-3  # cached decode vs the uncached forward, f32 (tests/test_models.py)
-# the kernels each serving path must launch
-PATH_KERNELS = {"prefill": ("fused_rmsnorm", "flash_attention"), "decode": ("fused_rmsnorm", "flash_decode")}
+# the kernels each serving path must launch; the xLSTM decode step's
+# single-token mLSTM / sLSTM updates are plain tensor code, as in JAX
+PATH_KERNELS = {
+    (ARCH, "prefill"): ("fused_rmsnorm", "flash_attention"),
+    (ARCH, "decode"): ("fused_rmsnorm", "flash_decode"),
+    (XLSTM, "prefill"): ("fused_rmsnorm", "chunked_mlstm"),
+    (XLSTM, "decode"): ("fused_rmsnorm",),
+}
 # card peaks for bound_ms (NVIDIA H100 SXM data sheet, 700 W): bytes/s, and
-# FLOP/s for bf16/f16 on the tensor cores and f32 on the CUDA cores
+# FLOP/s for bf16/f16 on the tensor cores and f32 outside them: the best the
+# card does for the inputs' type, whatever units a kernel uses
 HBM_BPS = 3.35e12
 L2_BYTES = 50e6
 PEAK_FLOPS = {"bfloat16": 989e12, "float16": 989e12, "float32": 67e12}
@@ -315,7 +342,7 @@ def phase_decode_kernel() -> dict:
         lens = torch.full((B,), S, dtype=torch.int32, device=dev)
         # every slot is live: K and V read once, q read and o written once
         nb = (k.numel() + v.numel() + 2 * q.numel()) * 2 + lens.numel() * 4
-        b_ms, b_by = bound_ms(nb, 2.0 * B * Hq * S * (Dh + Dh), "float32")  # f32 FMAs on the CUDA cores
+        b_ms, b_by = bound_ms(nb, 2.0 * B * Hq * S * (Dh + Dh), "bfloat16")
         n = input_sets(nb)
         sets = [(q, k, v)] + [tuple(x.clone() for x in (q, k, v)) for _ in range(n - 1)]
         mask = (torch.arange(S, device=dev)[None, :] < lens[:, None])[:, None, None, :]  # (B, 1, 1, S)
@@ -339,6 +366,136 @@ def phase_decode_kernel() -> dict:
             f"max_abs_err={r['max_abs_err']:.3g} at {r['shape']}")
         recs[B] = r
     return recs[32]
+
+
+def mlstm_flops(B: int, L: int, H: int, D: int, chunk: int = 128) -> float:
+    """FLOPs of the chunkwise mLSTM at the JAX package's chunk of 128: per
+    (b, h, chunk of c rows) 2 D for each of q k^T and P V over the chunk's
+    c (c + 1) / 2 causal pairs s <= t; 2 c D^2 for q C_in in every chunk after
+    the first, and as many for the state update in every chunk before the
+    last."""
+    full, rest = divmod(L, chunk)
+    sizes = [chunk] * full + ([rest] if rest else [])
+    per_bh = (sum(2.0 * D * c * (c + 1) for c in sizes)
+              + sum(2.0 * c * D * D for c in sizes[1:]) + sum(2.0 * c * D * D for c in sizes[:-1]))
+    return B * H * per_bh
+
+
+def phase_mlstm_kernel() -> dict:
+    """chunked_mlstm against its plain version over ragged cases, then timed
+    at the serving prefill shape (b = 32, SEQ tokens) and at the decode fill
+    (b = 32, CTX - 1 tokens) of xlstm-125m (H 4, D 384)."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import chunked_mlstm, ref
+
+    rng = np.random.default_rng(6)
+    dev = "cuda"
+
+    def inputs(B, L, H, D, dtype, gates):
+        """q, k, v ~ N(0, 1) in ``dtype``; f32 gates: "normal" li ~ N(0, 0.5)
+        and lf = logsigmoid(N(0, 1) + 1); "steep" lf = logsigmoid(N(0, 1) - 20),
+        about -20; "big" and "big-signed" li ~ U(-10, 10), so the stabilizer
+        m reaches ~10.  With "big", q and k are |N(0, 1)|; with "big-signed"
+        they keep their signs, and the scores can cancel in the denominator
+        down toward its floor exp(-m) ~ e^-10 (see the signed cases below)."""
+        q, k, v = (torch.from_numpy(rng.standard_normal((B, L, H, D), dtype=np.float32)).to(dev) for _ in range(3))
+        if gates in ("big", "big-signed"):
+            if gates == "big":
+                q, k = q.abs(), k.abs()
+            li = torch.from_numpy(rng.uniform(-10.0, 10.0, (B, L, H)).astype(np.float32)).to(dev)
+        else:
+            li = 0.5 * torch.from_numpy(rng.standard_normal((B, L, H), dtype=np.float32)).to(dev)
+        shift = -20.0 if gates == "steep" else 1.0
+        lf = F.logsigmoid(torch.from_numpy(rng.standard_normal((B, L, H), dtype=np.float32)).to(dev) + shift)
+        dt = getattr(torch, dtype)
+        return q.to(dt), k.to(dt), v.to(dt), li, lf
+
+    cases = [
+        # (B, L, H, D, gates)
+        (1, 1, 1, 64, "normal"),       # L = 1: a one-token forward without a cache
+        (3, 37, 4, 100, "normal"),     # one ragged chunk, D not a multiple of 16
+        (1, 128, 4, 384, "normal"),    # xlstm's head dim, two chunks
+        (32, 128, 4, 384, "normal"),   # the serving prefill shape
+        (3, 300, 1, 64, "normal"),     # ragged last chunk, H = 1
+        (32, 1023, 4, 384, "normal"),  # the decode fill at b = 32
+        (3, 1024, 4, 100, "normal"),   # many whole chunks
+        (32, 1024, 1, 64, "normal"),
+        (1, 300, 4, 384, "big"),       # the stabilizer up to ~10
+        (3, 1024, 1, 64, "big"),
+        (3, 300, 4, 100, "steep"),     # forget gates near -20
+        (1, 1024, 4, 384, "steep"),
+    ]
+    n = 0
+    for dtype in ("float32", "bfloat16", "float16"):
+        for B, L, H, D, gates in cases:
+            args = inputs(B, L, H, D, dtype, gates)
+            got = chunked_mlstm(*args)
+            want = ref.mlstm_chunked(*args)
+            if got.shape != want.shape or got.dtype != want.dtype or not bool(torch.isfinite(got).all()):
+                raise AssertionError(f"chunked_mlstm {dtype} B={B} L={L} H={H} D={D} {gates}: "
+                                     f"{tuple(got.shape)} {got.dtype} or non-finite values")
+            err = rel_err(got, want)
+            if not err <= MLSTM_TOL[dtype]:
+                raise AssertionError(f"chunked_mlstm {dtype} B={B} L={L} H={H} D={D} {gates}: rel err {err:.3g}")
+            n += 1
+            del args, got, want
+    # Signed q and k with the big input gates.  The denominator's sum of
+    # weighted scores cancels, and on some draws the plain f32 version
+    # itself strays from an f64 evaluation of the same inputs by more than
+    # MLSTM_TOL (the lines below print both errors).  So here the kernel is
+    # held against the f64 evaluation, to within twice the plain f32
+    # version's own error there, or MLSTM_TOL where that is larger.
+    for dtype in ("float32", "bfloat16", "float16"):
+        for B, L, H, D in ((1, 300, 4, 384), (3, 1024, 1, 64)):
+            args = inputs(B, L, H, D, dtype, "big-signed")
+            got, plain = chunked_mlstm(*args), ref.mlstm_chunked(*args)
+            exact = ref.mlstm_chunked(*(a.double() for a in args))
+            e_kp, e_pe, e_ke = rel_err(got, plain), rel_err(plain, exact), rel_err(got, exact)
+            limit = max(MLSTM_TOL[dtype], 2.0 * e_pe)
+            log(f"chunked_mlstm {dtype} B={B} L={L} H={H} D={D} big-signed: kernel vs plain rel err {e_kp:.3g}, "
+                f"plain vs f64 {e_pe:.3g}, kernel vs f64 {e_ke:.3g} (limit {limit:.3g})")
+            if not bool(torch.isfinite(got).all()) or not e_ke <= limit:
+                raise AssertionError(f"chunked_mlstm {dtype} B={B} L={L} H={H} D={D} big-signed: "
+                                     f"rel err vs f64 {e_ke:.3g} > {limit:.3g} or non-finite values")
+            n += 1
+            del args, got, plain, exact
+    torch.cuda.synchronize()
+    log(f"chunked_mlstm: {n} cases within tolerance")
+
+    B, L, H, D = 32, SEQ, 4, 384
+    args = inputs(B, L, H, D, "bfloat16", "normal")
+    nb = 4 * args[0].numel() * 2 + 2 * args[3].numel() * 4  # q, k, v read, o written; two f32 gates
+    b_ms, b_by = bound_ms(nb, mlstm_flops(B, L, H, D), "bfloat16")
+    n = input_sets(nb)
+    sets = [args] + [tuple(x.clone() for x in args) for _ in range(n - 1)]
+    r = {
+        "name": "chunked_mlstm", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/mlstm_chunk.cu",
+        "replaces": "src/repro/kernels/mlstm_chunk.py:115",
+        "max_abs_err": float((chunked_mlstm(*args).float() - ref.mlstm_chunked(*args).float()).abs().max()),
+        "ms": timed_ms(lambda i: chunked_mlstm(*sets[i]), n),
+        "plain_ms": timed_ms(lambda i: ref.mlstm_chunked(*sets[i]), n),
+        "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": None,  # no single PyTorch call computes an mLSTM
+        "shape": f"q/k/v ({B}, {L}, {H}, {D}) bf16, f32 gates",
+    }
+    del sets
+    log(f"{r['name']}: kernel_ms={r['ms']:.5f} plain_ms={r['plain_ms']:.5f} library_ms=none "
+        f"bound_ms={r['bound_ms']:.5f} ({r['bound_by']}) max_abs_err={r['max_abs_err']:.3g} at {r['shape']}")
+    L = CTX - 1
+    args = inputs(B, L, H, D, "bfloat16", "normal")
+    nb = 4 * args[0].numel() * 2 + 2 * args[3].numel() * 4
+    b_ms, b_by = bound_ms(nb, mlstm_flops(B, L, H, D), "bfloat16")
+    log(f"chunked_mlstm at the decode fill q/k/v ({B}, {L}, {H}, {D}) bf16: "
+        f"kernel_ms={timed_ms(lambda i: chunked_mlstm(*args), 1, reps=2):.5f} "
+        f"plain_ms={timed_ms(lambda i: ref.mlstm_chunked(*args), 1, reps=2):.5f} "
+        f"bound_ms={b_ms:.5f} ({b_by})")
+    del args
+    torch.cuda.empty_cache()
+    return r
 
 
 # ------------------------------------------------------------------ phase 3
@@ -437,6 +594,71 @@ def phase_cached_decode(m16) -> None:
     torch.cuda.empty_cache()
 
 
+# ----------------------------------------------------------------- phase 3c
+def phase_xlstm_model():
+    """xlstm-125m at full width: f32 logits on the card against the CPU plain
+    path at (2, XLSTM_SEQ) tokens; f32 prefill of XLSTM_SEQ tokens into its
+    recurrent cache and 4 decode steps, each against the uncached forward;
+    and the bf16 path block by block: each block in bf16 on the card, fed the
+    f32 reference's input to that block, against the f32 block on the CPU.
+
+    The whole bf16 model is not held to MODEL_TOL_BF16: rounding the same
+    weights to bf16 moves xlstm's logits far from the f32 ones, because the
+    exponential gates amplify the rounding from block to block, and `repro`
+    moves as far.  Its logits must be finite, and their distance from the
+    f32 reference must stay within XLSTM_BF16_FACTOR of `repro`'s own at
+    full width (XLSTM_BF16_REPRO).  Returns the bf16 model."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model, layers
+    from repro_torch.models.model import _block_apply
+
+    cfg = get_config(XLSTM)
+    cfg32 = cfg.replace(param_dtype="float32", compute_dtype="float32")
+    toks = torch.from_numpy(np.random.default_rng(4).integers(0, cfg.vocab_size, (2, XLSTM_SEQ + 4))).cuda()
+    m32 = Model(cfg32, seed=0, device="cuda")
+    logits32 = m32(toks[:, :XLSTM_SEQ]).logits
+    errs, _ = cached_decode_errs(m32, toks, XLSTM_SEQ, XLSTM_SEQ + 4)
+    m16 = Model(cfg, seed=0, device="cuda")
+    m16.load_state_dict(m32.state_dict())  # the same weights, rounded to bf16
+    logits16 = m16(toks[:, :XLSTM_SEQ]).logits
+    m32.to("cpu")
+    cpu_toks = toks[:, :XLSTM_SEQ].cpu()
+    want = m32(cpu_toks).logits
+    for name, got in (("f32", logits32), ("bf16", logits16)):
+        if got.shape != (2, XLSTM_SEQ, cfg.vocab_size) or not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"{XLSTM} {name} logits: shape {tuple(got.shape)} or non-finite values")
+    x = layers.embed(m32.embed, cfg32, cpu_toks, torch.float32)
+    pos = torch.arange(XLSTM_SEQ)[None].expand(2, XLSTM_SEQ)
+    block_errs = []
+    for spec, b32, b16 in zip(m32.specs, m32.layers, m16.layers):
+        y = _block_apply(b32, cfg32, spec, x, pos)
+        y16 = _block_apply(b16, cfg, spec, x.to(torch.bfloat16).cuda(), pos.cuda())
+        block_errs.append(rel_err(y16.cpu(), y))
+        x = y
+    e32, e16 = rel_err(logits32.cpu(), want), rel_err(logits16.cpu(), want)
+    bf16_limit = XLSTM_BF16_FACTOR * XLSTM_BF16_REPRO
+    log(f"model {XLSTM} full width (2, {XLSTM_SEQ}) tokens: card f32 vs CPU plain rel err {e32:.3g} "
+        f"(limit {MODEL_TOL_F32}); bf16 blocks on the card vs f32 blocks on the CPU, same inputs: rel err "
+        f"{' '.join(f'{e:.3g}' for e in block_errs)} (limit {MODEL_TOL_BF16}); whole bf16 model vs CPU f32 "
+        f"rel err {e16:.6g} (limit {bf16_limit:.6g}: {XLSTM_BF16_FACTOR} x repro's own {XLSTM_BF16_REPRO})")
+    log(f"cached decode {XLSTM} f32: prefill {XLSTM_SEQ} into the recurrent cache, 4 steps vs uncached "
+        f"forward rel err {max(errs):.3g} (limit {DECODE_TOL_F32})")
+    if not e32 <= MODEL_TOL_F32:
+        raise AssertionError(f"{XLSTM} f32 logits rel err {e32:.3g} > {MODEL_TOL_F32}")
+    if not max(block_errs) <= MODEL_TOL_BF16:
+        raise AssertionError(f"{XLSTM} bf16 blocks rel err {block_errs} > {MODEL_TOL_BF16}")
+    if not e16 <= bf16_limit:
+        raise AssertionError(f"{XLSTM} whole bf16 model rel err {e16:.6g} > {bf16_limit:.6g}")
+    if not max(errs) <= DECODE_TOL_F32:
+        raise AssertionError(f"{XLSTM} f32 cached decode rel err {errs}")
+    del m32, logits32, logits16
+    torch.cuda.empty_cache()
+    return m16
+
+
 # ------------------------------------------------------------------ phase 4
 def forward_breakdown(executor, batch: int, label: str, top: int = 8) -> None:
     """Device time by kernel over one executor call (a forward or a decode
@@ -463,8 +685,8 @@ def forward_breakdown(executor, batch: int, label: str, top: int = 8) -> None:
         log(f"  {ms:9.3f} ms {n:5d}x  {name[:90]}")
 
 
-def phase_serve(model, mode: str) -> dict[str, int]:
-    """Profile the ``mode`` step ("prefill": a forward on SEQ tokens,
+def phase_serve(model, arch: str, mode: str) -> dict[str, int]:
+    """Profile ``arch``'s ``mode`` step ("prefill": a forward on SEQ tokens,
     "decode": one step against CTX cached tokens), plan from that profile,
     serve N_REQUESTS, and return the launch counts of the serving run."""
     from repro_torch.configs import get_config
@@ -475,36 +697,36 @@ def phase_serve(model, mode: str) -> dict[str, int]:
     from repro_torch.profiling import H100_SXM, module_duration
     from repro_torch.serving import ServingEngine
 
-    cfg = get_config(ARCH)
+    cfg = get_config(arch)
     seq = SEQ if mode == "prefill" else CTX
-    profile, executor = profile_model(ARCH, batches=BATCHES, seq=SEQ, model=model, mode=mode, ctx=CTX)
+    profile, executor = profile_model(arch, batches=BATCHES, seq=SEQ, model=model, mode=mode, ctx=CTX)
     label = f"forward seq={SEQ}" if mode == "prefill" else f"decode step ctx={CTX}"
-    forward_breakdown(executor, max(BATCHES), label)
+    forward_breakdown(executor, max(BATCHES), f"{arch} {label}")
     for c in sorted(profile.configs, key=lambda c: c.batch):
         analytic = module_duration(cfg, c.batch, seq, H100_SXM, mode=mode)
-        log(f"{mode} profile b={c.batch}: measured {c.duration * 1e3:.3f} ms, analytic-h100 "
+        log(f"{arch} {mode} profile b={c.batch}: measured {c.duration * 1e3:.3f} ms, analytic-h100 "
             f"{analytic * 1e3:.3f} ms, ratio {c.duration / analytic:.3f}")
     big = max(profile.configs, key=lambda c: c.batch)
     rate = 0.5 * big.batch / big.duration          # half one card's throughput
     slo = 2.0 * (big.batch / rate + big.duration)  # room to collect and run a full batch
-    wl = Workload(AppDAG(ARCH, series(Leaf(ARCH))), {ARCH: rate}, slo)
-    plan = Planner().plan(wl, {ARCH: profile})
+    wl = Workload(AppDAG(arch, series(Leaf(arch))), {arch: rate}, slo)
+    plan = Planner().plan(wl, {arch: profile})
     log(plan.summary())
     if not plan.feasible:
         raise AssertionError("plan infeasible on the measured profile")
-    engine = ServingEngine(plan, executors={ARCH: executor})
+    engine = ServingEngine(plan, executors={arch: executor})
     reset_launch_counts()
     res = engine.run(N_REQUESTS, rate)
     launches = {k.__name__: k.launches for k in KERNELS}
-    st = res.module_stats[ARCH]
-    log(f"{mode}: served {len(res.e2e_latencies)}/{N_REQUESTS} requests at {rate:.1f}/s: attainment "
+    st = res.module_stats[arch]
+    log(f"{arch} {mode}: served {len(res.e2e_latencies)}/{N_REQUESTS} requests at {rate:.1f}/s: attainment "
         f"{res.attainment:.4f} p99 {res.p99 * 1e3:.3f} ms (slo {slo * 1e3:.3f} ms) "
         f"batches {st.batches}; launches while serving {launches}")
     if len(res.e2e_latencies) != N_REQUESTS:
         raise AssertionError(f"{len(res.e2e_latencies)} of {N_REQUESTS} requests completed")
-    idle = [name for name in PATH_KERNELS[mode] if launches[name] <= 0]
+    idle = [name for name in PATH_KERNELS[arch, mode] if launches[name] <= 0]
     if idle:
-        raise AssertionError(f"{mode} path: kernels not launched while serving: {idle}")
+        raise AssertionError(f"{arch} {mode} path: kernels not launched while serving: {idle}")
     return launches
 
 
@@ -519,12 +741,16 @@ def main() -> int:
         print("chip_smoke.py: no CUDA device", file=sys.stderr)
         return 1
     smi = phase_card_and_build()
-    kernels = phase_kernels() + [phase_decode_kernel()]
+    kernels = phase_kernels() + [phase_decode_kernel(), phase_mlstm_kernel()]
     model = phase_model()
     phase_cached_decode(model)
-    by_path = {mode: phase_serve(model, mode) for mode in ("prefill", "decode")}
+    xmodel = phase_xlstm_model()
+    by_path = {}
+    for arch, m in ((ARCH, model), (XLSTM, xmodel)):
+        for mode in ("prefill", "decode"):
+            by_path[f"{arch} {mode}"] = phase_serve(m, arch, mode)
     for k in kernels:
-        k["launches_by_path"] = {mode: n[k["name"]] for mode, n in by_path.items()}
+        k["launches_by_path"] = {path: n[k["name"]] for path, n in by_path.items()}
         k["launches"] = sum(k["launches_by_path"].values())
         del k["shape"]
     log(json.dumps({"kernels": kernels}))

@@ -8,9 +8,10 @@ launches in ``<wrapper>.launches``.
 from . import ops, ref
 from .decode_attention import flash_decode
 from .flash_attention import flash_attention
+from .mlstm_chunk import chunked_mlstm
 from .rmsnorm import fused_rmsnorm
 
-KERNELS = (fused_rmsnorm, flash_attention, flash_decode)
+KERNELS = (fused_rmsnorm, flash_attention, flash_decode, chunked_mlstm)
 
 
 def reset_launch_counts() -> None:
@@ -18,4 +19,4 @@ def reset_launch_counts() -> None:
         k.launches = 0
 
 
-__all__ = ["KERNELS", "flash_attention", "flash_decode", "fused_rmsnorm", "ops", "ref", "reset_launch_counts"]
+__all__ = ["KERNELS", "chunked_mlstm", "flash_attention", "flash_decode", "fused_rmsnorm", "ops", "ref", "reset_launch_counts"]

@@ -12,6 +12,7 @@ import torch
 
 from .decode_attention import flash_decode
 from .flash_attention import flash_attention
+from .mlstm_chunk import chunked_mlstm
 from .rmsnorm import fused_rmsnorm
 
 
@@ -25,6 +26,10 @@ def attention(q, k, v, *, causal: bool = True, window: int | None = None, scale:
 
 def decode_attention(q, k_cache, v_cache, lengths, *, window: int | None = None, scale: float | None = None):
     return flash_decode(q, k_cache, v_cache, lengths, window=window, scale=scale)
+
+
+def mlstm(q, k, v, i_gate, f_gate, *, chunk: int = 128):
+    return chunked_mlstm(q, k, v, i_gate, f_gate, chunk=chunk)
 
 
 def row_parallel_dense(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:

@@ -12,6 +12,12 @@ import torch
 
 NEG_INF = -1e30
 
+# PyTorch's CPU exp (seen with torch 2.13.0+cpu) can return values off in
+# the fourth digit on its first call in a process when that call is split
+# across threads, as the mLSTM weights' first exp is; one single-threaded
+# call settles its kernel dispatch before any such call.
+torch.exp(torch.zeros(1))
+
 
 def rmsnorm(x: torch.Tensor, w: torch.Tensor, *, eps: float = 1e-6, gemma: bool = False) -> torch.Tensor:
     """RMSNorm; ``gemma=True`` uses the (1 + w) parameterization."""
@@ -103,3 +109,39 @@ def decode_attention(
     p = torch.softmax(logits, dim=-1)
     out = torch.einsum("bhgs,bshd->bhgd", p, v_cache.float())
     return out.reshape(B, Hq, Dv).to(q.dtype)
+
+
+def mlstm_chunked(
+    q: torch.Tensor,       # (B, L, H, D)
+    k: torch.Tensor,       # (B, L, H, D)
+    v: torch.Tensor,       # (B, L, H, D)
+    i_gate: torch.Tensor,  # (B, L, H) log input gate (pre-exp)
+    f_gate: torch.Tensor,  # (B, L, H) log forget gate (log sigmoid applied)
+    *,
+    chunk: int = 64,
+) -> torch.Tensor:
+    """mLSTM parallel form (full quadratic; the kernel is chunked, ``chunk``
+    is not read).  Returns (B, L, H, D) in ``q.dtype``.  Computes in f32, as
+    JAX does, or in f64 for f64 inputs (a reference for the f32 paths).
+
+    Stabilized exponential gating as in the xLSTM paper: with cumulative log
+    forget F_t = sum_{s<=t} logf_s, the unnormalized weight of (t, s) is
+    exp(F_t - F_s + i_s - m_t) where m_t is the running max for stability.
+    """
+    B, L, H, D = q.shape
+    ct = torch.float64 if q.dtype == torch.float64 else torch.float32
+    qf, kf, vf = (x.to(ct) for x in (q, k, v))
+    lf = f_gate.to(ct)
+    li = i_gate.to(ct)
+    F = torch.cumsum(lf, dim=1)  # (B, L, H)
+    # log weight matrix  Dmat[t, s] = F_t - F_s + i_s  (s <= t)
+    logw = F[:, :, None] - F[:, None, :] + li[:, None, :]  # (B, L, L, H)
+    tri = torch.tril(torch.ones((L, L), dtype=torch.bool, device=q.device))
+    logw = torch.where(tri[None, :, :, None], logw, torch.full_like(logw, NEG_INF))
+    m = logw.amax(dim=2, keepdim=True)  # (B, L, 1, H)
+    w = torch.exp(logw - m)
+    scores = torch.einsum("bthd,bshd->btsh", qf, kf) * (D ** -0.5)
+    num = torch.einsum("btsh,btsh,bshd->bthd", scores, w, vf)
+    den = torch.einsum("btsh,btsh->bth", scores, w).abs()
+    den = torch.maximum(den, torch.exp(-m[:, :, 0, :]))  # xLSTM max(|n|, exp(-m))
+    return (num / den[..., None]).to(q.dtype)

@@ -12,6 +12,8 @@ event simulation.
       --real --rate 100 --slo 0.5 --requests 200     # on the card
   PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-360m \\
       --real --smoke --device cpu --requests 20      # reduced, on the CPU
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm-125m \\
+      --real --smoke --device cpu --requests 20      # xLSTM, reduced, on the CPU
 """
 from __future__ import annotations
 
@@ -53,10 +55,13 @@ def make_decode_executor(model: Model, ctx: int, max_batch: int) -> Callable[[in
     the device is done.
 
     The cache is allocated once and filled once, here, by a prefill of
-    ``ctx - 1`` tokens, outside any timed window.  Every step writes the same
-    slot with the same values, so repeated steps time the same work.  The batch
-    slices of a (B, S, H, D) cache are contiguous views, and the step writes
-    through them into the one cache.
+    ``ctx - 1`` tokens, outside any timed window.  On a KV cache every step
+    writes the same slot with the same values.  A recurrent state (xLSTM's
+    C, n, m, ...) has no length: the fill leaves it at a known point, and
+    each step advances it in place, but a step's work does not depend on the
+    state's values, so repeated steps still time the same work.  The batch
+    slices of a cache tensor (batch first) are contiguous views, and the step
+    writes through them into the one cache.
     """
     device = model.device
     prefill = make_prefill_fn(model, InputShape("decode_fill", ctx, max_batch, "prefill"))

@@ -4,9 +4,12 @@ The JAX model stacks each segment with repeats > 1 on a leading axis (it
 initializes them under ``jax.vmap`` and runs them under ``lax.scan``); this
 port keeps one module per layer, so the bridge unstacks them.  Every leaf of
 the tree must land on a parameter of the same shape and every parameter
-must be written: anything else raises.  Typical source:
+must be written: anything else raises.  A leaf is a dense weight or bias,
+a norm scale, or one of the recurrent mixers' raw arrays (the mLSTM's
+``conv_w`` / ``conv_b``, the sLSTM's ``r``), which `ssm.ParamGroup` keeps
+beside its dense sub-dicts.  Typical source:
 ``jax.tree.map(np.asarray, params)``.  `load_jax_cache` does the same for a
-KV cache from the JAX model's ``init_cache`` or a cached forward.
+cache from the JAX model's ``init_cache`` or a cached forward.
 """
 from __future__ import annotations
 
@@ -78,9 +81,12 @@ def load_jax_params(model: Model, tree: Mapping[str, Any]) -> Model:
 
 
 def load_jax_cache(model: Model, jax_cache: Any) -> list[dict]:
-    """The JAX model's KV cache (a list of segments, each a tuple of per-layer
-    ``{"k", "v"}`` dicts, stacked on a leading axis where the segment repeats)
-    as the port's per-layer list of dicts of tensors on the model's device."""
+    """The JAX model's cache (a list of segments, each a tuple of per-layer
+    dicts, stacked on a leading axis where the segment repeats) as the port's
+    per-layer list of dicts of tensors on the model's device.  Each layer
+    keeps its own state names and dtypes: ``k``, ``v`` for attention;
+    ``conv``, ``C``, ``n``, ``m`` for mLSTM; ``c``, ``n``, ``h``, ``m`` for
+    sLSTM."""
     if len(jax_cache) != len(model.segments):
         raise ValueError(f"{len(jax_cache)} JAX cache segments, torch model has {len(model.segments)}")
     out: list[dict] = []
@@ -91,5 +97,5 @@ def load_jax_cache(model: Model, jax_cache: Any) -> list[dict]:
         for r in range(repeats):
             take = (lambda a: a) if repeats == 1 else (lambda a, r=r: np.asarray(a)[r])
             for j in range(len(pattern)):
-                out.append({name: _tensor(take(seg[j][name])).to(model.device) for name in ("k", "v")})
+                out.append({name: _tensor(take(arr)).to(model.device) for name, arr in seg[j].items()})
     return out

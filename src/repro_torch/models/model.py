@@ -1,9 +1,10 @@
 """Decoder model: embed, a stack of blocks, final norm, unembed.
 
 Counterpart of `repro.models.model` for stacks of attention + dense-MLP
-blocks.  `segmentize` is copied verbatim so the bridge can read the JAX
-parameter layout; the blocks themselves are a flat `nn.ModuleList` in layer
-order, and a Python loop over it replaces the JAX package's ``lax.scan``.
+blocks and of xLSTM's mLSTM / sLSTM blocks.  `segmentize` is copied verbatim
+so the bridge can read the JAX parameter layout; the blocks themselves are a
+flat `nn.ModuleList` in layer order, and a Python loop over it replaces the
+JAX package's ``lax.scan``.
 """
 from __future__ import annotations
 
@@ -14,14 +15,35 @@ from torch import nn
 
 from ..configs.base import ArchConfig, LayerSpec
 from . import layers as Lyr
+from . import ssm as Ssm
 
 # the ROADMAP items (queue 1) that bring the parts this slice does not port
 _LATER = {
-    "mla": "item 5 (MLA and MoE)",
-    "moe": "item 5 (MLA and MoE)",
-    "mamba": "item 6 (recurrent mixers)",
-    "mlstm": "item 6 (recurrent mixers)",
-    "slstm": "item 6 (recurrent mixers)",
+    "mla": "item 5 (Mamba, MLA and MoE)",
+    "moe": "item 5 (Mamba, MLA and MoE)",
+    "mamba": "item 5 (Mamba, MLA and MoE)",
+}
+# each mixer's (init, forward, cache_init), called as
+#   init(gen, cfg, dtype)
+#   forward(p, cfg, spec, x, positions, cache, idx) -> (y, cache)
+#   cache_init(cfg, spec, batch, max_seq, dtype, device)
+# the recurrent mixers' states have no length, so they ignore max_seq
+_MIXERS = {
+    "attn": (
+        Lyr.attn_init,
+        lambda p, cfg, spec, x, pos, cache, idx: Lyr.attn_forward(p, cfg, spec, x, pos, cache=cache, idx=idx),
+        Lyr.attn_cache_init,
+    ),
+    "mlstm": (
+        Ssm.mlstm_init,
+        lambda p, cfg, spec, x, pos, cache, idx: Ssm.mlstm_forward(p, cfg, x, cache=cache),
+        lambda cfg, spec, batch, max_seq, dtype, device: Ssm.mlstm_cache_init(cfg, batch, dtype, device),
+    ),
+    "slstm": (
+        Ssm.slstm_init,
+        lambda p, cfg, spec, x, pos, cache, idx: Ssm.slstm_forward(p, cfg, x, cache=cache),
+        lambda cfg, spec, batch, max_seq, dtype, device: Ssm.slstm_cache_init(cfg, batch, dtype, device),
+    ),
 }
 
 
@@ -67,7 +89,7 @@ def _block_init(gen: torch.Generator, cfg: ArchConfig, spec: LayerSpec, dtype) -
             )
     p = nn.ModuleDict({
         "mix_norm": Lyr.norm_init(cfg, cfg.d_model, dtype, gen.device),
-        "mix": Lyr.attn_init(gen, cfg, dtype),
+        "mix": _MIXERS[spec.mixer][0](gen, cfg, dtype),
     })
     if spec.ffn != "none":
         p["ffn_norm"] = Lyr.norm_init(cfg, cfg.d_model, dtype, gen.device)
@@ -78,7 +100,7 @@ def _block_init(gen: torch.Generator, cfg: ArchConfig, spec: LayerSpec, dtype) -
 def _block_apply(p, cfg: ArchConfig, spec: LayerSpec, x: torch.Tensor, positions: torch.Tensor,
                  cache: dict | None = None, idx: int | None = None) -> torch.Tensor:
     h = Lyr.apply_norm(cfg, p["mix_norm"], x)
-    y, _ = Lyr.attn_forward(p["mix"], cfg, spec, h, positions, cache=cache, idx=idx)
+    y, _ = _MIXERS[spec.mixer][1](p["mix"], cfg, spec, h, positions, cache, idx)
     x = x + y
     if spec.ffn != "none":
         h = Lyr.apply_norm(cfg, p["ffn_norm"], x)
@@ -99,8 +121,9 @@ class Model(nn.Module):
 
     Parameters mirror the JAX pytree: ``embed.w``, ``final_norm``, an
     optional untied ``head``, and ``layers[i]`` holding ``mix_norm``,
-    ``mix`` (q, k, v, o and optional qn / kn) and, unless the spec has no
-    FFN, ``ffn_norm`` and ``ffn`` (w1, w3, w2).
+    ``mix`` (attention: q, k, v, o and optional qn / kn; mLSTM / sLSTM: the
+    `ssm.ParamGroup` of `ssm.mlstm_init` / `ssm.slstm_init`) and, unless the
+    spec has no FFN, ``ffn_norm`` and ``ffn`` (w1, w3, w2).
     """
 
     def __init__(self, cfg: ArchConfig, *, seed: int = 0, device: str | torch.device = "cuda"):
@@ -127,11 +150,12 @@ class Model(nn.Module):
         return self.embed["w"].device
 
     def init_cache(self, batch: int, max_seq: int, dtype=None) -> list[dict]:
-        """One zeroed K/V cache per layer, in layer order, in ``dtype``
-        (default: the compute dtype) on the model's device.  `forward` fills
-        it in place."""
+        """One zeroed cache per layer, in layer order, on the model's device:
+        K/V in ``dtype`` (default: the compute dtype) for attention; for the
+        recurrent mixers their state (``max_seq`` unused), f32 but for the
+        mLSTM's conv rows.  `forward` fills it in place."""
         dtype = dtype or self.cdtype
-        return [Lyr.attn_cache_init(self.cfg, spec, batch, max_seq, dtype, self.device) for spec in self.specs]
+        return [_MIXERS[spec.mixer][2](self.cfg, spec, batch, max_seq, dtype, self.device) for spec in self.specs]
 
     def forward(
         self,
@@ -146,9 +170,9 @@ class Model(nn.Module):
     ) -> ModelOutput:
         """Logits of ``tokens`` (or ``embeds``) at positions ``idx, idx+1, ...``.
 
-        With ``cache`` (from `init_cache`) the attention layers prefill it
-        (S > 1) or decode one token against it (S == 1) in place, and the
-        output carries the same cache object.
+        With ``cache`` (from `init_cache`) the layers prefill it (S > 1) or
+        decode one token against it (S == 1) in place, and the output
+        carries the same cache object.
         """
         cfg = self.cfg
         if embeds is None:
