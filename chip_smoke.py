@@ -24,6 +24,12 @@ result line):
    card against the f32 block on the CPU fed the same input, and its
    recurrent cache: prefill XLSTM_SEQ tokens, then 4 decode steps, each
    against the uncached forward;
+3d. jamba-v0.1-52b at full width from a seed: each block kind (Mamba + dense
+   MLP, Mamba + MoE, attention + dense MLP) at (2, JAMBA_SEQ) tokens in f32
+   on the card against the CPU plain path and in bf16 against that; its
+   one-macro-block cut (JAMBA_CHECK_LAYERS, 53.2 GB in f32): cached decode,
+   prefill JAMBA_SEQ tokens then 4 steps, against the uncached forward, and
+   the whole model in bf16 against f32;
 4. profile -> plan -> serve prefill: the forward timed at each batch size, a
    plan from that measured profile, and 200 requests through the flat
    serving engine with real forwards;
@@ -31,9 +37,11 @@ result line):
    at each batch size beside the analytic decode profile, a plan, and 200
    requests served by decode steps.
 
-Phases 4 and 5 run for smollm-360m and then for xlstm-125m.  Each sets the
-launch counts to 0 just before serving, reads them just after, and fails
-unless every kernel of its path (PATH_KERNELS) was launched.
+Phases 4 and 5 run for smollm-360m, xlstm-125m and then jamba-v0.1-52b's
+serving cut (JAMBA_SERVE_LAYERS, bf16, 52.1 GB; the full 32 layers do not
+fit the card).  Each sets the launch counts to 0 just before serving, reads
+them just after, and fails unless every kernel of its path (PATH_KERNELS)
+was launched.
 
 It ends with the kernels' JSON record, the card's name and power limit as
 nvidia-smi prints them, and ``{"ok": true, "device": {...}}`` as the last
@@ -56,6 +64,15 @@ N_REQUESTS = 200
 ARCH = "smollm-360m"
 XLSTM = "xlstm-125m"
 XLSTM_SEQ = 300    # xlstm model checks: crosses the mLSTM kernel's chunk boundaries
+JAMBA = "jamba-v0.1-52b"
+# jamba's depth cuts, in whole 8-layer macro-blocks at the published widths:
+# the full 32 layers (51.6B parameters, 103 GB in bf16) do not fit one 80 GB
+# card; 16 layers (26.05B, 52.1 GB in bf16) are the deepest that leave room
+# for the decode fill's activations beside them, and serve; 8 layers (13.3B,
+# 53.2 GB in f32) are the f32 checks
+JAMBA_SERVE_LAYERS = 16
+JAMBA_CHECK_LAYERS = 8
+JAMBA_SEQ = 300    # jamba block and model checks: crosses the scan's chunk boundaries
 # rel err max|a - b| / max|b| of a kernel against its plain version, as the
 # JAX package holds its own kernels (tests/test_kernels.py)
 TOL = {"float32": 2e-5, "bfloat16": 2e-2, "float16": 2e-2}
@@ -63,7 +80,7 @@ TOL = {"float32": 2e-5, "bfloat16": 2e-2, "float16": 2e-2}
 # looser than TOL because the weights are exponentials of long cumulative sums
 MLSTM_TOL = {"float32": 2e-4, "bfloat16": 3e-2, "float16": 3e-2}
 MODEL_TOL_F32 = 1e-3   # full-width f32 logits, card vs CPU plain path
-MODEL_TOL_BF16 = 5e-2  # full-width bf16 logits (xlstm: each bf16 block) vs the f32 CPU reference
+MODEL_TOL_BF16 = 5e-2  # full-width bf16 logits (xlstm, jamba: each bf16 block) vs the f32 reference
 # xlstm-125m's whole bf16 model: rounding the same weights to bf16 moves its
 # logits far past MODEL_TOL_BF16, in the JAX package too.  Its own distance
 # at full width on the same tokens (tools/xlstm_bf16_drift.py, the largest
@@ -72,14 +89,21 @@ MODEL_TOL_BF16 = 5e-2  # full-width bf16 logits (xlstm: each bf16 block) vs the 
 # the smoke config).
 XLSTM_BF16_REPRO = 0.584967
 XLSTM_BF16_FACTOR = 2.0
+# jamba's one-macro-block cut in bf16, the same way: `repro`'s own distance
+# at that config on the same tokens (tools/jamba_bf16_drift.py, the largest
+# over seeds 0, 1 and 2, JAX on the CPU), and the factor for the port's
+JAMBA_BF16_REPRO = 0.843555
+JAMBA_BF16_FACTOR = 2.0
 DECODE_TOL_F32 = 5e-3  # cached decode vs the uncached forward, f32 (tests/test_models.py)
-# the kernels each serving path must launch; the xLSTM decode step's
-# single-token mLSTM / sLSTM updates are plain tensor code, as in JAX
+# the kernels each serving path must launch; the xLSTM and Mamba decode
+# steps' single-token recurrent updates are plain tensor code, as in JAX
 PATH_KERNELS = {
     (ARCH, "prefill"): ("fused_rmsnorm", "flash_attention"),
     (ARCH, "decode"): ("fused_rmsnorm", "flash_decode"),
     (XLSTM, "prefill"): ("fused_rmsnorm", "chunked_mlstm"),
     (XLSTM, "decode"): ("fused_rmsnorm",),
+    (JAMBA, "prefill"): ("fused_rmsnorm", "flash_attention", "chunked_selective_scan"),
+    (JAMBA, "decode"): ("fused_rmsnorm", "flash_decode"),
 }
 # card peaks for bound_ms (NVIDIA H100 SXM data sheet, 700 W): bytes/s, and
 # FLOP/s for bf16/f16 on the tensor cores and f32 outside them: the best the
@@ -498,6 +522,125 @@ def phase_mlstm_kernel() -> dict:
     return r
 
 
+def scan_bytes(B: int, L: int, D: int, N: int, x_bytes: int, p_bytes: int, h0: bool) -> float:
+    """Bytes the selective scan must move: x, dt, B, C and A read once, y and
+    h_last written once, h0 read once if given."""
+    return (B * L * D * (2 * x_bytes + p_bytes) + 2 * B * L * N * p_bytes + D * N * 4
+            + B * N * D * 4 * (2 if h0 else 1))
+
+
+def phase_scan_kernel() -> dict:
+    """chunked_selective_scan against its plain version over ragged cases in
+    f32 / bf16 / f16 (dt, B and C in f32, as Mamba passes them, and in x's
+    type, as the JAX package's kernel test does), one scan split in two with
+    the state carried against the whole, then timed at jamba's serving
+    prefill shape (b = 32, SEQ tokens, D 8192, N 16) and at its decode fill
+    (b = 32, CTX - 1 tokens, h0 read), beside the plain version."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import chunked_selective_scan, ref
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    dev = "cuda"
+
+    def inputs(B, L, D, N, dtype, pdtype, h0):
+        """As tests/test_kernels.py draws them: x ~ 0.5 N(0, 1), dt =
+        softplus(N(0, 1)), A = -exp(0.3 N(0, 1)), B, C ~ N(0, 1); h0 ~ 0.5
+        N(0, 1).  Drawn on the card (the largest cases hold 268M values)."""
+        def arr(shape, dt):
+            return torch.randn(shape, generator=gen, device=dev).to(dt)
+
+        x = (0.5 * arr((B, L, D), torch.float32)).to(dtype)
+        dt = F.softplus(arr((B, L, D), torch.float32)).to(pdtype)
+        A = -torch.exp(0.3 * arr((D, N), torch.float32))
+        return (x, dt, A, arr((B, L, N), pdtype), arr((B, L, N), pdtype),
+                0.5 * arr((B, N, D), torch.float32) if h0 else None)
+
+    def check(label, got, want, tol):
+        (y, h), (y_ref, h_ref) = got, want
+        if y.shape != y_ref.shape or y.dtype != y_ref.dtype or h.shape != h_ref.shape or h.dtype != torch.float32:
+            raise AssertionError(f"chunked_selective_scan {label}: y {tuple(y.shape)} {y.dtype}, "
+                                 f"h_last {tuple(h.shape)} {h.dtype}")
+        if not (bool(torch.isfinite(y).all()) and bool(torch.isfinite(h).all())):
+            raise AssertionError(f"chunked_selective_scan {label}: non-finite values")
+        ey, eh = rel_err(y, y_ref), rel_err(h, h_ref)
+        if not (ey <= tol and eh <= tol):
+            raise AssertionError(f"chunked_selective_scan {label}: rel err y {ey:.3g}, h_last {eh:.3g} (limit {tol})")
+
+    cases = [
+        # (B, L, D, N, h0)
+        (1, 1, 64, 16, False),      # L = 1
+        (32, 1, 8192, 16, True),    # L = 1 from a state (jamba width)
+        (3, 37, 100, 8, True),      # ragged L and D, N 8 (the smoke config's)
+        (3, 37, 64, 16, False),
+        (1, 128, 8192, 16, False),  # b = 1: the narrowest tiles
+        (32, 128, 8192, 16, False), # the serving prefill shape
+        (3, 300, 100, 16, True),
+        (2, 300, 8192, 16, True),   # the jamba block checks' shape
+        (3, 1023, 64, 8, True),
+        (1, 1023, 100, 16, False),
+        (32, 1023, 8192, 16, True), # the decode fill
+    ]
+    n = 0
+    for dtype in ("float32", "bfloat16", "float16"):
+        tdt = getattr(torch, dtype)
+        for pdtype in (torch.float32,) if dtype == "float32" else (torch.float32, tdt):
+            for B, L, D, N, h0 in cases:
+                args = inputs(B, L, D, N, tdt, pdtype, h0)
+                check(f"{dtype} (params {str(pdtype)[6:]}) B={B} L={L} D={D} N={N} h0={h0}",
+                      chunked_selective_scan(*args), ref.selective_scan(*args), TOL[dtype])
+                n += 1
+                del args
+    # Bm and Cm as column slices of one projection (Mamba's layout), and a
+    # scan split at a step that is no multiple of the kernel's 8 with the
+    # state carried, against the whole
+    x, dt, A, Bm, Cm, _ = inputs(2, 300, 8192, 16, torch.float32, torch.float32, False)
+    proj = torch.cat([dt[..., :256], Bm, Cm], dim=-1)
+    Bs, Cs = proj[..., 256:272], proj[..., 272:]
+    check("f32 strided B, C", chunked_selective_scan(x, dt, A, Bs, Cs), ref.selective_scan(x, dt, A, Bm, Cm),
+          TOL["float32"])
+    y_all, h_all = chunked_selective_scan(x, dt, A, Bm, Cm)
+    x1, dt1, B1, C1 = (t[:, :141].contiguous() for t in (x, dt, Bm, Cm))
+    x2, dt2, B2, C2 = (t[:, 141:].contiguous() for t in (x, dt, Bm, Cm))
+    y1, h1 = chunked_selective_scan(x1, dt1, A, B1, C1)
+    y2, h2 = chunked_selective_scan(x2, dt2, A, B2, C2, h1)
+    check("f32 two halves, state carried, vs the whole", (torch.cat([y1, y2], 1), h2), (y_all, h_all),
+          TOL["float32"])
+    torch.cuda.synchronize()
+    log(f"chunked_selective_scan: {n + 2} cases within tolerance")
+
+    def record(B, L, h0):
+        D, N = 8192, 16
+        args = inputs(B, L, D, N, torch.bfloat16, torch.float32, h0)
+        nb = scan_bytes(B, L, D, N, 2, 4, h0)
+        b_ms, b_by = bound_ms(nb, 8.0 * B * L * D * N, "float32")
+        n_sets = input_sets(nb)
+        sets = [args] + [tuple(None if a is None else a.clone() for a in args) for _ in range(n_sets - 1)]
+        y, h = chunked_selective_scan(*args)
+        y_ref, h_ref = ref.selective_scan(*args)
+        return {
+            "name": "chunked_selective_scan", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/ssm_scan.cu",
+            "replaces": "src/repro/kernels/ssm_scan.py:86",
+            "max_abs_err": max(float((y.float() - y_ref.float()).abs().max()), float((h - h_ref).abs().max())),
+            "ms": timed_ms(lambda i: chunked_selective_scan(*sets[i]), n_sets),
+            "plain_ms": timed_ms(lambda i: ref.selective_scan(*sets[i]), n_sets, reps=2),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": None,  # no single PyTorch call computes a selective scan
+            "shape": f"x ({B}, {L}, {D}) bf16, dt/B/C f32, N {N}{', h0' if h0 else ''}",
+            "exp_count": B * L * D * N,
+        }
+
+    recs = [record(32, SEQ, False), record(1, SEQ, False), record(32, CTX - 1, True)]
+    for r in recs:
+        log(f"{r['name']}: kernel_ms={r['ms']:.5f} plain_ms={r['plain_ms']:.5f} library_ms=none "
+            f"bound_ms={r['bound_ms']:.5f} ({r['bound_by']}; {r.pop('exp_count') / 1e6:.1f}M exponentials) "
+            f"max_abs_err={r['max_abs_err']:.3g} at {r['shape']}")
+    torch.cuda.empty_cache()
+    return recs[0]
+
+
 # ------------------------------------------------------------------ phase 3
 def phase_model():
     import numpy as np
@@ -634,8 +777,8 @@ def phase_xlstm_model():
     pos = torch.arange(XLSTM_SEQ)[None].expand(2, XLSTM_SEQ)
     block_errs = []
     for spec, b32, b16 in zip(m32.specs, m32.layers, m16.layers):
-        y = _block_apply(b32, cfg32, spec, x, pos)
-        y16 = _block_apply(b16, cfg, spec, x.to(torch.bfloat16).cuda(), pos.cuda())
+        y, _ = _block_apply(b32, cfg32, spec, x, pos)
+        y16, _ = _block_apply(b16, cfg, spec, x.to(torch.bfloat16).cuda(), pos.cuda())
         block_errs.append(rel_err(y16.cpu(), y))
         x = y
     e32, e16 = rel_err(logits32.cpu(), want), rel_err(logits16.cpu(), want)
@@ -657,6 +800,209 @@ def phase_xlstm_model():
     del m32, logits32, logits16
     torch.cuda.empty_cache()
     return m16
+
+
+# ----------------------------------------------------------------- phase 3d
+def jamba_config(n_layers: int, dtype: str):
+    """jamba-v0.1-52b at its published widths, cut to ``n_layers`` (whole
+    8-layer macro-blocks, so every layer kind keeps its published order)."""
+    from repro_torch.configs import get_config
+
+    return get_config(JAMBA).replace(n_layers=n_layers, param_dtype=dtype, compute_dtype=dtype)
+
+
+def with_routes(fn, replay=None):
+    """``fn()``'s result and, for each MoE layer in call order, the expert
+    ids it took and its router probabilities.  With ``replay`` (such a list
+    from another run) each layer takes its ids from it instead of its own
+    top-k, and its gates from its own probabilities at those ids (its aux
+    loss stays its own): the same expert choices, computed in this run's
+    precision.  `moe.route` is wrapped for the call."""
+    import torch
+
+    from repro_torch.models import moe
+    from repro_torch.models.layers import dense
+
+    seen, route, given = [], moe.route, iter(replay or ())
+
+    def recording(p, cfg, x):
+        ids, gates, aux = route(p, cfg, x)
+        probs = torch.softmax(dense(p["router"], x).float()[..., :cfg.n_experts], dim=-1)
+        if replay is not None:
+            ids = next(given)[0].to(x.device)
+            gates = probs.gather(-1, ids)
+            gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
+        seen.append((ids, probs))
+        return ids, gates, aux
+
+    moe.route = recording
+    try:
+        return fn(), seen
+    finally:
+        moe.route = route
+
+
+def rerouted(routes_a, routes_b) -> int:
+    """Tokens whose set of experts differs, summed over the MoE layers."""
+    return sum(int((ia.sort(-1).values.cpu() != ib.sort(-1).values.cpu()).any(-1).sum())
+               for (ia, _), (ib, _) in zip(routes_a, routes_b))
+
+
+def tie_ratio(routes_16, routes_32, k: int) -> float:
+    """The largest, over the tokens that bf16 routed to another expert set
+    than f32, of that token's f32 top-k margin (its k-th minus its (k+1)-th
+    probability) over twice the layer's largest change of any router
+    probability between the two runs.  A set can change only where the
+    margin is at most that (an expert leaves it and another joins only if
+    each moves toward the other by the margin between them), so a ratio
+    above 1 is a routing fault, not rounding; 0 when nothing moved."""
+    worst = 0.0
+    for (i16, p16), (i32, p32) in zip(routes_16, routes_32):
+        i16, p16, i32, p32 = (t.cpu() for t in (i16, p16, i32, p32))
+        moved = (i16.sort(-1).values != i32.sort(-1).values).any(-1)
+        if bool(moved.any()):
+            top = p32.topk(k + 1, dim=-1).values
+            margin = top[:, k - 1] - top[:, k]
+            worst = max(worst, float(margin[moved].max() / (2 * (p16 - p32).abs().max())))
+    return worst
+
+
+def phase_jamba_blocks() -> None:
+    """Each jamba block kind at full width (Mamba + dense MLP, Mamba + MoE,
+    attention + dense MLP), fed one (2, JAMBA_SEQ) input drawn with numpy:
+    the f32 block on the card against the same weights on the CPU's plain
+    path, and the same weights in bf16 on the card against that f32 CPU
+    block.  The weights are made on the card from a seed and moved to the
+    host (the MoE block's f32 experts are 11.3 GB).
+
+    bf16 rounding sends a few tokens of the MoE block to another expert
+    pair, where two of the router's probabilities are within rounding of
+    each other: top-2 routing is not continuous there, in `repro` too, and
+    no tolerance holds across the jump.  So the bf16 MoE block is held at
+    MODEL_TOL_BF16 against the f32 CPU block given the bf16 run's expert
+    choices, and every token it moved must be such a near-tie (`tie_ratio`
+    at most 1).  Its distance from the f32 block's own choices is printed."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models.model import _block_apply, _block_init
+
+    cfg32, cfg16 = jamba_config(JAMBA_CHECK_LAYERS, "float32"), jamba_config(JAMBA_CHECK_LAYERS, "bfloat16")
+    specs = cfg32.layer_specs()
+    x = torch.from_numpy(np.random.default_rng(9).standard_normal((2, JAMBA_SEQ, cfg32.d_model), dtype=np.float32))
+    pos = torch.arange(JAMBA_SEQ)[None].expand(2, JAMBA_SEQ)
+    for spec in (specs[0], specs[1], specs[4]):
+        name = f"{spec.mixer} + {spec.ffn}"
+        b32 = _block_init(torch.Generator(device="cuda").manual_seed(0), cfg32, spec, torch.float32)
+        b16 = _block_init(torch.Generator(device="cuda").manual_seed(0), cfg16, spec, torch.bfloat16)
+        b16.load_state_dict(b32.state_dict())  # the same weights, rounded to bf16 (A_log and D stay f32)
+        (y32, a32), r32 = with_routes(lambda: _block_apply(b32, cfg32, spec, x.cuda(), pos.cuda()))
+        (y16, _), r16 = with_routes(lambda: _block_apply(b16, cfg16, spec, x.cuda().bfloat16(), pos.cuda()))
+        del b16
+        torch.cuda.empty_cache()
+        b32.to("cpu")
+        (want, a_cpu), r_cpu = with_routes(lambda: _block_apply(b32, cfg32, spec, x, pos))
+        for label, got in (("f32", y32), ("bf16", y16)):
+            if got.shape != want.shape or not bool(torch.isfinite(got).all()):
+                raise AssertionError(f"{JAMBA} {name} {label} block: shape {tuple(got.shape)} or non-finite values")
+        e32, e16 = rel_err(y32.cpu(), want), rel_err(y16.cpu(), want)
+        extra, ratio = "", 0.0
+        if spec.ffn == "moe":
+            (matched, _), _ = with_routes(lambda: _block_apply(b32, cfg32, spec, x, pos), replay=r16)
+            e16_own, e16 = e16, rel_err(y16.cpu(), matched)
+            ratio = tie_ratio(r16, r_cpu, cfg32.top_k)
+            extra = (f"; aux card {float(a32):.6f} CPU {float(a_cpu):.6f}; tokens routed to another expert pair: "
+                     f"f32 card {rerouted(r32, r_cpu)}, bf16 card {rerouted(r16, r_cpu)} of {2 * JAMBA_SEQ} "
+                     f"(largest f32 margin over twice the bf16 change {ratio:.3g}, limit 1); bf16 vs the f32 "
+                     f"block on its own expert choices rel err {e16_own:.3g}, printed only")
+        del b32
+        log(f"{JAMBA} {name} block, full width, (2, {JAMBA_SEQ}) tokens: card f32 vs CPU plain rel err "
+            f"{e32:.3g} (limit {MODEL_TOL_F32}); card bf16 vs CPU f32 rel err {e16:.3g} (limit {MODEL_TOL_BF16}"
+            f"{', on the bf16 expert choices' if spec.ffn == 'moe' else ''})" + extra)
+        if not e32 <= MODEL_TOL_F32:
+            raise AssertionError(f"{JAMBA} {name} f32 block rel err {e32:.3g} > {MODEL_TOL_F32}")
+        if not e16 <= MODEL_TOL_BF16:
+            raise AssertionError(f"{JAMBA} {name} bf16 block rel err {e16:.3g} > {MODEL_TOL_BF16}")
+        if not ratio <= 1.0:
+            raise AssertionError(f"{JAMBA} {name} bf16 block moved a token that was no near-tie: ratio {ratio:.3g}")
+        del y32, y16, want
+    torch.cuda.empty_cache()
+
+
+def phase_jamba_model() -> None:
+    """The one-macro-block cut of jamba (JAMBA_CHECK_LAYERS layers) at full
+    width from seed 0: in f32 (53.2 GB) its cached decode, prefill of
+    JAMBA_SEQ tokens then 4 steps, each against the uncached forward; then
+    the same weights in bf16 (built anew from the seed once the f32 model
+    is freed: both do not fit) against the f32 logits.
+
+    The whole bf16 model is not held to MODEL_TOL_BF16: over its 4 MoE
+    layers bf16 rounding moves a few percent of the tokens to other experts
+    (each a near-tie, checked with `tie_ratio`), and the attention and the
+    Mamba recurrence carry those tokens' change to later ones; `repro`
+    moves as far.  Its logits must be finite, and their distance from the
+    f32 logits must stay within JAMBA_BF16_FACTOR of `repro`'s own at the
+    same config (JAMBA_BF16_REPRO).  Given the bf16 run's expert choices
+    (the f32 model built a second time), the f32 model must come within
+    MODEL_TOL_BF16 of the bf16 logits."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models import Model
+
+    cfg32, cfg16 = jamba_config(JAMBA_CHECK_LAYERS, "float32"), jamba_config(JAMBA_CHECK_LAYERS, "bfloat16")
+    toks = torch.from_numpy(np.random.default_rng(10).integers(0, cfg32.vocab_size, (2, JAMBA_SEQ + 4))).cuda()
+    m32 = Model(cfg32, seed=0, device="cuda")
+    out32, r32 = with_routes(lambda: m32(toks[:, :JAMBA_SEQ]))
+    errs, _ = cached_decode_errs(m32, toks, JAMBA_SEQ, JAMBA_SEQ + 4)
+    del m32
+    torch.cuda.empty_cache()
+    m16 = Model(cfg16, seed=0, device="cuda")
+    out16, r16 = with_routes(lambda: m16(toks[:, :JAMBA_SEQ]))
+    del m16
+    torch.cuda.empty_cache()
+    m32 = Model(cfg32, seed=0, device="cuda")
+    matched, _ = with_routes(lambda: m32(toks[:, :JAMBA_SEQ]), replay=r16)
+    del m32
+    torch.cuda.empty_cache()
+    for label, out in (("f32", out32), ("bf16", out16)):
+        if out.logits.shape != (2, JAMBA_SEQ, cfg32.vocab_size) or not bool(torch.isfinite(out.logits).all()):
+            raise AssertionError(f"{JAMBA} {label} logits: shape {tuple(out.logits.shape)} or non-finite values")
+    e16, e_matched = rel_err(out16.logits, out32.logits), rel_err(out16.logits, matched.logits)
+    ratio = tie_ratio(r16, r32, cfg32.top_k)
+    bf16_limit = JAMBA_BF16_FACTOR * JAMBA_BF16_REPRO
+    log(f"cached decode {JAMBA} {JAMBA_CHECK_LAYERS} layers f32: prefill {JAMBA_SEQ}, 4 steps vs uncached forward "
+        f"rel err {max(errs):.3g} (limit {DECODE_TOL_F32})")
+    log(f"model {JAMBA} {JAMBA_CHECK_LAYERS} layers, full width, (2, {JAMBA_SEQ}) tokens: bf16 vs f32 on the card "
+        f"rel err {e16:.6g} (limit {bf16_limit:.6g}: {JAMBA_BF16_FACTOR} x repro's own {JAMBA_BF16_REPRO}); tokens "
+        f"routed to another expert pair in bf16 {rerouted(r16, r32)} of {len(r32)} x {2 * JAMBA_SEQ} (largest f32 "
+        f"margin over twice the bf16 change {ratio:.3g}, limit 1); bf16 vs f32 on the bf16 expert choices rel err "
+        f"{e_matched:.6g} (limit {MODEL_TOL_BF16}); aux f32 {float(out32.aux_loss):.6f} "
+        f"bf16 {float(out16.aux_loss):.6f}")
+    if not max(errs) <= DECODE_TOL_F32:
+        raise AssertionError(f"{JAMBA} f32 cached decode rel err {errs}")
+    if not e16 <= bf16_limit:
+        raise AssertionError(f"{JAMBA} whole bf16 model rel err {e16:.6g} > {bf16_limit:.6g}")
+    if not e_matched <= MODEL_TOL_BF16:
+        raise AssertionError(f"{JAMBA} whole bf16 model on its own expert choices rel err {e_matched:.6g} "
+                             f"> {MODEL_TOL_BF16}")
+    if not ratio <= 1.0:
+        raise AssertionError(f"{JAMBA} bf16 model moved a token that was no near-tie: ratio {ratio:.3g}")
+
+
+def jamba_serving_model():
+    """The serving cut of jamba (JAMBA_SERVE_LAYERS layers, bf16, seed 0)."""
+    import torch
+
+    from repro_torch.models import Model
+    from repro_torch.profiling import param_count
+
+    cfg = jamba_config(JAMBA_SERVE_LAYERS, "bfloat16")
+    model = Model(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    log(f"{JAMBA} serving cut: {cfg.n_layers} of 32 layers, {param_count(cfg) / 1e9:.3f}B parameters, "
+        f"{torch.cuda.memory_allocated() / 1e9:.1f} GB on the card")
+    return model
 
 
 # ------------------------------------------------------------------ phase 4
@@ -688,8 +1034,9 @@ def forward_breakdown(executor, batch: int, label: str, top: int = 8) -> None:
 def phase_serve(model, arch: str, mode: str) -> dict[str, int]:
     """Profile ``arch``'s ``mode`` step ("prefill": a forward on SEQ tokens,
     "decode": one step against CTX cached tokens), plan from that profile,
-    serve N_REQUESTS, and return the launch counts of the serving run."""
-    from repro_torch.configs import get_config
+    serve N_REQUESTS, and return the launch counts of the serving run.  The
+    analytic profile beside it is of the model's own config (jamba's depth
+    cut, not the full 32 layers)."""
     from repro_torch.core import Leaf, Planner, Workload, series
     from repro_torch.core.dag import AppDAG
     from repro_torch.kernels import KERNELS, reset_launch_counts
@@ -697,7 +1044,7 @@ def phase_serve(model, arch: str, mode: str) -> dict[str, int]:
     from repro_torch.profiling import H100_SXM, module_duration
     from repro_torch.serving import ServingEngine
 
-    cfg = get_config(arch)
+    cfg = model.cfg
     seq = SEQ if mode == "prefill" else CTX
     profile, executor = profile_model(arch, batches=BATCHES, seq=SEQ, model=model, mode=mode, ctx=CTX)
     label = f"forward seq={SEQ}" if mode == "prefill" else f"decode step ctx={CTX}"
@@ -741,14 +1088,22 @@ def main() -> int:
         print("chip_smoke.py: no CUDA device", file=sys.stderr)
         return 1
     smi = phase_card_and_build()
-    kernels = phase_kernels() + [phase_decode_kernel(), phase_mlstm_kernel()]
+    kernels = phase_kernels() + [phase_decode_kernel(), phase_mlstm_kernel(), phase_scan_kernel()]
     model = phase_model()
     phase_cached_decode(model)
     xmodel = phase_xlstm_model()
+    phase_jamba_blocks()
+    phase_jamba_model()
     by_path = {}
     for arch, m in ((ARCH, model), (XLSTM, xmodel)):
         for mode in ("prefill", "decode"):
             by_path[f"{arch} {mode}"] = phase_serve(m, arch, mode)
+    del model, xmodel, m
+    jmodel = jamba_serving_model()
+    for mode in ("prefill", "decode"):
+        by_path[f"{JAMBA} {mode}"] = phase_serve(jmodel, JAMBA, mode)
+    del jmodel
+    torch.cuda.empty_cache()
     for k in kernels:
         k["launches_by_path"] = {path: n[k["name"]] for path, n in by_path.items()}
         k["launches"] = sum(k["launches_by_path"].values())

@@ -10,8 +10,9 @@ from .decode_attention import flash_decode
 from .flash_attention import flash_attention
 from .mlstm_chunk import chunked_mlstm
 from .rmsnorm import fused_rmsnorm
+from .ssm_scan import chunked_selective_scan
 
-KERNELS = (fused_rmsnorm, flash_attention, flash_decode, chunked_mlstm)
+KERNELS = (fused_rmsnorm, flash_attention, flash_decode, chunked_mlstm, chunked_selective_scan)
 
 
 def reset_launch_counts() -> None:
@@ -19,4 +20,7 @@ def reset_launch_counts() -> None:
         k.launches = 0
 
 
-__all__ = ["KERNELS", "chunked_mlstm", "flash_attention", "flash_decode", "fused_rmsnorm", "ops", "ref", "reset_launch_counts"]
+__all__ = [
+    "KERNELS", "chunked_mlstm", "chunked_selective_scan", "flash_attention", "flash_decode",
+    "fused_rmsnorm", "ops", "ref", "reset_launch_counts",
+]

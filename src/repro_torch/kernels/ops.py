@@ -14,6 +14,7 @@ from .decode_attention import flash_decode
 from .flash_attention import flash_attention
 from .mlstm_chunk import chunked_mlstm
 from .rmsnorm import fused_rmsnorm
+from .ssm_scan import chunked_selective_scan
 
 
 def rmsnorm(x: torch.Tensor, w: torch.Tensor, *, eps: float = 1e-6, gemma: bool = False) -> torch.Tensor:
@@ -30,6 +31,10 @@ def decode_attention(q, k_cache, v_cache, lengths, *, window: int | None = None,
 
 def mlstm(q, k, v, i_gate, f_gate, *, chunk: int = 128):
     return chunked_mlstm(q, k, v, i_gate, f_gate, chunk=chunk)
+
+
+def selective_scan(x, dt, A, Bm, Cm, h0=None):
+    return chunked_selective_scan(x, dt, A, Bm, Cm, h0)
 
 
 def row_parallel_dense(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:

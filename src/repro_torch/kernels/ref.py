@@ -11,6 +11,7 @@ from __future__ import annotations
 import torch
 
 NEG_INF = -1e30
+SCAN_CHUNK = 64  # steps of the plain selective scan per chunk
 
 # PyTorch's CPU exp (seen with torch 2.13.0+cpu) can return values off in
 # the fourth digit on its first call in a process when that call is split
@@ -109,6 +110,45 @@ def decode_attention(
     p = torch.softmax(logits, dim=-1)
     out = torch.einsum("bhgs,bshd->bhgd", p, v_cache.float())
     return out.reshape(B, Hq, Dv).to(q.dtype)
+
+
+def selective_scan(
+    x: torch.Tensor,   # (B, L, D)
+    dt: torch.Tensor,  # (B, L, D)
+    A: torch.Tensor,   # (D, N)
+    Bm: torch.Tensor,  # (B, L, N)
+    Cm: torch.Tensor,  # (B, L, N)
+    h0: torch.Tensor | None = None,  # (B, N, D): the JAX package's transposed state layout
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Mamba's selective scan: h_t = exp(dt_t A) h_{t-1} + (dt_t x_t) B_t and
+    y_t = C_t . h_t, from h0 (zeros if None).  Returns (y (B, L, D) in
+    ``x.dtype``, h_last (B, N, D) f32).  Computes in f32 (f64 for f64 x).
+
+    torch has no associative scan, so this is the sequential recurrence,
+    taken SCAN_CHUNK steps at a time with h carried between chunks: at most
+    two (B, SCAN_CHUNK, D, N) tensors are alive, where the JAX oracle builds
+    four (B, L, D, N) ones.  Splitting the recurrence does not change the function
+    (tests/test_kernels.py checks the same of the JAX oracle)."""
+    B, L, D = x.shape
+    N = A.shape[1]
+    ct = torch.float64 if x.dtype == torch.float64 else torch.float32
+    A_ = A.to(ct)
+    if h0 is None:
+        h = torch.zeros((B, D, N), dtype=ct, device=x.device)
+    else:
+        h = h0.to(ct).transpose(1, 2)  # (B, D, N)
+    y = torch.empty((B, L, D), dtype=x.dtype, device=x.device)
+    for c0 in range(0, L, SCAN_CHUNK):
+        sl = slice(c0, min(c0 + SCAN_CHUNK, L))
+        dtc = dt[:, sl].to(ct)
+        a = torch.exp(dtc[..., None] * A_)  # (B, c, D, N)
+        hs = (dtc * x[:, sl].to(ct))[..., None] * Bm[:, sl].to(ct)[:, :, None, :]  # b x, then h in place
+        for t in range(hs.shape[1]):
+            h = hs[:, t].add_(a[:, t] * h)  # a h + b x
+        del a
+        h = h.clone()  # off the chunk's buffer
+        y[:, sl] = torch.einsum("bldn,bln->bld", hs, Cm[:, sl].to(ct)).to(x.dtype)
+    return y, h.transpose(1, 2).to(torch.float32).contiguous()
 
 
 def mlstm_chunked(

@@ -14,6 +14,12 @@ event simulation.
       --real --smoke --device cpu --requests 20      # reduced, on the CPU
   PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm-125m \\
       --real --smoke --device cpu --requests 20      # xLSTM, reduced, on the CPU
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch jamba-v0.1-52b \\
+      --real --smoke --device cpu --requests 20      # Mamba + MoE, reduced, on the CPU
+
+jamba-v0.1-52b at full width (32 layers, 103 GB in bf16) does not fit one
+80 GB card; ``chip_smoke.py`` serves its 16-layer cut through
+``profile_model(model=...)``.
 """
 from __future__ import annotations
 
@@ -57,9 +63,10 @@ def make_decode_executor(model: Model, ctx: int, max_batch: int) -> Callable[[in
     The cache is allocated once and filled once, here, by a prefill of
     ``ctx - 1`` tokens, outside any timed window.  On a KV cache every step
     writes the same slot with the same values.  A recurrent state (xLSTM's
-    C, n, m, ...) has no length: the fill leaves it at a known point, and
-    each step advances it in place, but a step's work does not depend on the
-    state's values, so repeated steps still time the same work.  The batch
+    C, n, m; Mamba's conv tail and h) has no length: the fill leaves it at a
+    known point, and each step advances it in place, but a step's work does
+    not depend on the state's values, so repeated steps still time the same
+    work.  The batch
     slices of a cache tensor (batch first) are contiguous views, and the step
     writes through them into the one cache.
     """

@@ -5,9 +5,12 @@ initializes them under ``jax.vmap`` and runs them under ``lax.scan``); this
 port keeps one module per layer, so the bridge unstacks them.  Every leaf of
 the tree must land on a parameter of the same shape and every parameter
 must be written: anything else raises.  A leaf is a dense weight or bias,
-a norm scale, or one of the recurrent mixers' raw arrays (the mLSTM's
-``conv_w`` / ``conv_b``, the sLSTM's ``r``), which `ssm.ParamGroup` keeps
-beside its dense sub-dicts.  Typical source:
+a norm scale, one of the recurrent mixers' raw arrays (the Mamba and mLSTM
+``conv_w`` / ``conv_b``, Mamba's ``A_log`` and ``D``, the sLSTM's ``r``) or
+an MoE layer's stacked expert weights (``w1``, ``w3`` (E, d, f), ``w2``
+(E, f, d)), which a `layers.ParamGroup` keeps beside its dense sub-dicts.
+Each leaf is cast to its parameter's dtype, so ``A_log`` and ``D`` stay f32
+in a bf16 model, as in JAX.  Typical source:
 ``jax.tree.map(np.asarray, params)``.  `load_jax_cache` does the same for a
 cache from the JAX model's ``init_cache`` or a cached forward.
 """
@@ -85,8 +88,8 @@ def load_jax_cache(model: Model, jax_cache: Any) -> list[dict]:
     dicts, stacked on a leading axis where the segment repeats) as the port's
     per-layer list of dicts of tensors on the model's device.  Each layer
     keeps its own state names and dtypes: ``k``, ``v`` for attention;
-    ``conv``, ``C``, ``n``, ``m`` for mLSTM; ``c``, ``n``, ``h``, ``m`` for
-    sLSTM."""
+    ``conv``, ``h`` (B, N, D) for Mamba; ``conv``, ``C``, ``n``, ``m`` for
+    mLSTM; ``c``, ``n``, ``h``, ``m`` for sLSTM."""
     if len(jax_cache) != len(model.segments):
         raise ValueError(f"{len(jax_cache)} JAX cache segments, torch model has {len(model.segments)}")
     out: list[dict] = []

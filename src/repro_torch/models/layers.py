@@ -27,6 +27,24 @@ def _params(**tensors: torch.Tensor) -> nn.ParameterDict:
     )
 
 
+class ParamGroup(nn.ModuleDict):
+    """Sub-modules and raw parameters under one mapping: ``g["up"]`` is a
+    dense dict, ``g["conv_w"]`` a tensor."""
+
+    def __init__(self, modules: dict[str, nn.Module], **tensors: torch.Tensor):
+        super().__init__(modules)
+        for name, t in tensors.items():
+            self.register_parameter(name, nn.Parameter(t, requires_grad=False))
+
+    def __getitem__(self, key: str):
+        if key in self._parameters:
+            return self._parameters[key]
+        return super().__getitem__(key)
+
+    def __contains__(self, key) -> bool:
+        return key in self._parameters or super().__contains__(key)
+
+
 # --------------------------------------------------------------------- init
 def _dense_init(gen: torch.Generator, d_in: int, d_out: int, dtype, *, bias: bool = False) -> nn.ParameterDict:
     dev = gen.device

@@ -1,10 +1,10 @@
 """Decoder model: embed, a stack of blocks, final norm, unembed.
 
-Counterpart of `repro.models.model` for stacks of attention + dense-MLP
-blocks and of xLSTM's mLSTM / sLSTM blocks.  `segmentize` is copied verbatim
-so the bridge can read the JAX parameter layout; the blocks themselves are a
-flat `nn.ModuleList` in layer order, and a Python loop over it replaces the
-JAX package's ``lax.scan``.
+Counterpart of `repro.models.model` for blocks of an attention, Mamba,
+mLSTM or sLSTM mixer and a dense or MoE FFN (or none).  `segmentize` is
+copied verbatim so the bridge can read the JAX parameter layout; the blocks
+themselves are a flat `nn.ModuleList` in layer order, and a Python loop
+over it replaces the JAX package's ``lax.scan``.
 """
 from __future__ import annotations
 
@@ -15,14 +15,11 @@ from torch import nn
 
 from ..configs.base import ArchConfig, LayerSpec
 from . import layers as Lyr
+from . import moe as Moe
 from . import ssm as Ssm
 
-# the ROADMAP items (queue 1) that bring the parts this slice does not port
-_LATER = {
-    "mla": "item 5 (Mamba, MLA and MoE)",
-    "moe": "item 5 (Mamba, MLA and MoE)",
-    "mamba": "item 5 (Mamba, MLA and MoE)",
-}
+# the ROADMAP items (queue 1) that bring the parts the port does not have yet
+_LATER = {"mla": "item 5 (MLA, the MTP head and expert parallelism)"}
 # each mixer's (init, forward, cache_init), called as
 #   init(gen, cfg, dtype)
 #   forward(p, cfg, spec, x, positions, cache, idx) -> (y, cache)
@@ -44,6 +41,21 @@ _MIXERS = {
         lambda p, cfg, spec, x, pos, cache, idx: Ssm.slstm_forward(p, cfg, x, cache=cache),
         lambda cfg, spec, batch, max_seq, dtype, device: Ssm.slstm_cache_init(cfg, batch, dtype, device),
     ),
+    "mamba": (
+        Ssm.mamba_init,
+        lambda p, cfg, spec, x, pos, cache, idx: Ssm.mamba_forward(p, cfg, x, cache=cache),
+        lambda cfg, spec, batch, max_seq, dtype, device: Ssm.mamba_cache_init(cfg, batch, dtype, device),
+    ),
+}
+# each FFN's (init, forward), called as
+#   init(gen, cfg, dtype)
+#   forward(p, cfg, h) -> (y, aux loss or None)
+_FFNS = {
+    "dense": (
+        lambda gen, cfg, dtype: Lyr.mlp_init(gen, cfg.d_model, cfg.d_ff, dtype),
+        lambda p, cfg, h: (Lyr.mlp_forward(p, h, cfg.act), None),
+    ),
+    "moe": (Moe.moe_init, Moe.moe_forward),
 }
 
 
@@ -93,19 +105,22 @@ def _block_init(gen: torch.Generator, cfg: ArchConfig, spec: LayerSpec, dtype) -
     })
     if spec.ffn != "none":
         p["ffn_norm"] = Lyr.norm_init(cfg, cfg.d_model, dtype, gen.device)
-        p["ffn"] = Lyr.mlp_init(gen, cfg.d_model, cfg.d_ff, dtype)
+        p["ffn"] = _FFNS[spec.ffn][0](gen, cfg, dtype)
     return p
 
 
 def _block_apply(p, cfg: ArchConfig, spec: LayerSpec, x: torch.Tensor, positions: torch.Tensor,
-                 cache: dict | None = None, idx: int | None = None) -> torch.Tensor:
+                 cache: dict | None = None, idx: int | None = None) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """One block; returns (x, the MoE aux loss or None)."""
     h = Lyr.apply_norm(cfg, p["mix_norm"], x)
     y, _ = _MIXERS[spec.mixer][1](p["mix"], cfg, spec, h, positions, cache, idx)
     x = x + y
+    aux = None
     if spec.ffn != "none":
         h = Lyr.apply_norm(cfg, p["ffn_norm"], x)
-        x = x + Lyr.mlp_forward(p["ffn"], h, cfg.act)
-    return x
+        y, aux = _FFNS[spec.ffn][1](p["ffn"], cfg, h)
+        x = x + y
+    return x, aux
 
 
 @dataclass
@@ -121,9 +136,11 @@ class Model(nn.Module):
 
     Parameters mirror the JAX pytree: ``embed.w``, ``final_norm``, an
     optional untied ``head``, and ``layers[i]`` holding ``mix_norm``,
-    ``mix`` (attention: q, k, v, o and optional qn / kn; mLSTM / sLSTM: the
-    `ssm.ParamGroup` of `ssm.mlstm_init` / `ssm.slstm_init`) and, unless the
-    spec has no FFN, ``ffn_norm`` and ``ffn`` (w1, w3, w2).
+    ``mix`` (attention: q, k, v, o and optional qn / kn; Mamba / mLSTM /
+    sLSTM: the `layers.ParamGroup` of `ssm.mamba_init` / `ssm.mlstm_init` /
+    `ssm.slstm_init`) and, unless the spec has no FFN, ``ffn_norm`` and
+    ``ffn`` (dense: w1, w3, w2; MoE: the `layers.ParamGroup` of
+    `moe.moe_init`).
     """
 
     def __init__(self, cfg: ArchConfig, *, seed: int = 0, device: str | torch.device = "cuda"):
@@ -153,7 +170,7 @@ class Model(nn.Module):
         """One zeroed cache per layer, in layer order, on the model's device:
         K/V in ``dtype`` (default: the compute dtype) for attention; for the
         recurrent mixers their state (``max_seq`` unused), f32 but for the
-        mLSTM's conv rows.  `forward` fills it in place."""
+        Mamba and mLSTM conv rows.  `forward` fills it in place."""
         dtype = dtype or self.cdtype
         return [_MIXERS[spec.mixer][2](self.cfg, spec, batch, max_seq, dtype, self.device) for spec in self.specs]
 
@@ -172,7 +189,8 @@ class Model(nn.Module):
 
         With ``cache`` (from `init_cache`) the layers prefill it (S > 1) or
         decode one token against it (S == 1) in place, and the output
-        carries the same cache object.
+        carries the same cache object.  ``aux_loss`` is the sum of the MoE
+        layers' load-balance losses (0 without MoE layers), as in JAX.
         """
         cfg = self.cfg
         if embeds is None:
@@ -185,13 +203,15 @@ class Model(nn.Module):
             if cfg.mrope_sections is not None:
                 positions = positions.expand(3, B, S)
         layer_caches = cache if cache is not None else [None] * len(self.layers)
+        aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
         for spec, blk, c in zip(self.specs, self.layers, layer_caches):
-            x = _block_apply(blk, cfg, spec, x, positions, c, idx)
+            x, aux = _block_apply(blk, cfg, spec, x, positions, c, idx)
+            if aux is not None:
+                aux_total = aux_total + aux
         x = Lyr.apply_norm(cfg, self.final_norm, x)
         hidden = x if return_hidden else None
         logits = self.unembed(x) if compute_logits else None
-        aux = torch.zeros((), dtype=torch.float32, device=x.device)
-        return ModelOutput(logits, cache, aux, hidden)
+        return ModelOutput(logits, cache, aux_total, hidden)
 
     def unembed(self, x: torch.Tensor) -> torch.Tensor:
         if self.cfg.tie_embeddings:

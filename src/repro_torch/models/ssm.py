@@ -1,17 +1,18 @@
-"""Recurrent mixers of xLSTM: the mLSTM and sLSTM blocks.
+"""Recurrent mixers: Mamba (jamba) and xLSTM's mLSTM and sLSTM blocks.
 
-Counterpart of the xLSTM half of `repro.models.ssm` (Mamba comes with the
-next slice).  The mLSTM prefill runs the chunkwise kernel through
-`kernels.ops.mlstm`; its single-step decode and the rebuild of the terminal
-state after a cached prefill are plain tensor code, as in JAX.  The sLSTM is
-a Python loop over the sequence in place of ``lax.scan``: it is sequential
-by nature, and JAX has no kernel for it either.
+Counterpart of `repro.models.ssm`.  The Mamba prefill runs the selective
+scan through `kernels.ops.selective_scan`, and the mLSTM prefill the
+chunkwise kernel through `kernels.ops.mlstm`; their single-step decodes
+and the rebuild of the mLSTM's terminal state after a cached prefill are
+plain tensor code, as in JAX.  The sLSTM is a Python loop over the
+sequence in place of ``lax.scan``: it is sequential by nature, and JAX has
+no kernel for it either.
 
 Parameters mirror the JAX pytree, whose mixer dicts hold raw arrays
-(``conv_w``, ``conv_b``, the sLSTM's ``r``) beside dense sub-dicts: a
-`ParamGroup` holds both and is read as a mapping.  With a cache, the state
-tensors are updated in place (``copy_``) and the same dict is returned, as
-the attention cache is.
+(``conv_w``, ``conv_b``, Mamba's ``A_log`` and ``D``, the sLSTM's ``r``)
+beside dense sub-dicts: a `ParamGroup` holds both and is read as a
+mapping.  With a cache, the state tensors are updated in place (``copy_``,
+``mul_``) and the same dict is returned, as the attention cache is.
 """
 from __future__ import annotations
 
@@ -19,31 +20,12 @@ from typing import Any, Mapping
 
 import torch
 import torch.nn.functional as F
-from torch import nn
 
 from ..configs.base import ArchConfig
 from ..kernels import ops
-from .layers import _dense_init, _params, dense
+from .layers import ParamGroup, _dense_init, _params, dense
 
 Params = Mapping[str, Any]
-
-
-class ParamGroup(nn.ModuleDict):
-    """Sub-modules and raw parameters under one mapping: ``g["up"]`` is a
-    dense dict, ``g["conv_w"]`` a tensor."""
-
-    def __init__(self, modules: dict[str, nn.Module], **tensors: torch.Tensor):
-        super().__init__(modules)
-        for name, t in tensors.items():
-            self.register_parameter(name, nn.Parameter(t, requires_grad=False))
-
-    def __getitem__(self, key: str):
-        if key in self._parameters:
-            return self._parameters[key]
-        return super().__getitem__(key)
-
-    def __contains__(self, key) -> bool:
-        return key in self._parameters or super().__contains__(key)
 
 
 def _headify(x: torch.Tensor, H: int) -> torch.Tensor:
@@ -75,6 +57,89 @@ def _causal_conv(p: Params, xm: torch.Tensor, state: torch.Tensor | None):
     for i in range(1, K):
         acc = acc + ctx[:, i : i + L].float() * w[i]
     return F.silu(acc + p["conv_b"].float()).to(xm.dtype), ctx
+
+
+# ------------------------------------------------------------------- Mamba
+def mamba_init(gen: torch.Generator, cfg: ArchConfig, dtype) -> ParamGroup:
+    d = cfg.d_model
+    di = cfg.ssm_expand * d
+    N = cfg.d_state
+    dt_rank = max(1, d // 16)
+    dev = gen.device
+    conv_w = torch.randn((cfg.d_conv, di), generator=gen, device=dev, dtype=torch.float32) * 0.1
+    A = torch.arange(1, N + 1, dtype=torch.float32, device=dev).repeat(di, 1)
+    return ParamGroup(
+        {
+            "in_proj": _dense_init(gen, d, 2 * di, dtype),
+            "x_proj": _dense_init(gen, di, dt_rank + 2 * N, dtype),
+            "dt_proj": _dense_init(gen, dt_rank, di, dtype, bias=True),
+            "out_proj": _dense_init(gen, di, d, dtype),
+        },
+        conv_w=conv_w.to(dtype),
+        conv_b=torch.zeros((di,), dtype=dtype, device=dev),
+        A_log=torch.log(A),  # f32 whatever ``dtype``, as in JAX
+        D=torch.ones((di,), dtype=torch.float32, device=dev),
+    )
+
+
+def mamba_cache_init(cfg: ArchConfig, batch: int, dtype, device) -> dict:
+    """The conv tail (B, d_conv - 1, di) in ``dtype``; the state h in f32,
+    in the JAX package's (B, N, D) layout."""
+    di = cfg.ssm_expand * cfg.d_model
+    return {
+        "conv": torch.zeros((batch, cfg.d_conv - 1, di), dtype=dtype, device=device),
+        "h": torch.zeros((batch, cfg.d_state, di), dtype=torch.float32, device=device),
+    }
+
+
+def _mamba_ssm_inputs(p: Params, cfg: ArchConfig, xc: torch.Tensor):
+    """xc (B, L, di), the post-conv activations -> (dt, A, B, C) of the
+    recurrence: dt (B, L, di) and A (di, N) f32; B and C (B, L, N) f32,
+    column slices of one projection when the model computes in f32."""
+    N = cfg.d_state
+    dt_rank = p["dt_proj"]["w"].shape[0]
+    dt, Bm, Cm = dense(p["x_proj"], xc).split([dt_rank, N, N], dim=-1)
+    dt = F.softplus(dense(p["dt_proj"], dt).float())
+    A = -torch.exp(p["A_log"].float())
+    return dt, A, Bm.float(), Cm.float()
+
+
+def mamba_forward(
+    p: Params,
+    cfg: ArchConfig,
+    x: torch.Tensor,  # (B, L, d)
+    *,
+    cache: dict | None = None,
+) -> tuple[torch.Tensor, dict | None]:
+    """Mamba block; returns (y, cache).
+
+    Without a cache, or with one and ``L > 1`` (a prefill that starts from
+    the cache's h and conv rows, as JAX's does), the sequence runs through
+    the selective scan.  With a cache and ``L == 1`` it is one recurrent
+    step from the cached state, in the (B, N, D) layout.  The D x skip is
+    added outside the scan, and y is rounded to x's dtype before the
+    ``silu(z)`` gate, as in JAX.  The cache is written in place and returned.
+    """
+    xm, z = dense(p["in_proj"], x).chunk(2, dim=-1)
+    xc, ctx = _causal_conv(p, xm, None if cache is None else cache["conv"])
+    dt, A, Bm, Cm = _mamba_ssm_inputs(p, cfg, xc)
+    if x.shape[1] == 1 and cache is not None:
+        h = cache["h"]
+        a = torch.exp(dt[:, 0, None, :] * A.T[None])  # (B, N, D)
+        bx = (dt[:, 0] * xc[:, 0].float())[:, None, :] * Bm[:, 0, :, None]
+        h.mul_(a).add_(bx)
+        y = torch.einsum("bnd,bn->bd", h, Cm[:, 0])[:, None]
+    else:
+        y, h_last = ops.selective_scan(xc, dt, A, Bm, Cm, None if cache is None else cache["h"])
+        y = y.float()
+        if cache is not None:
+            cache["h"].copy_(h_last)
+    y = y + xc.float() * p["D"]
+    y = y.to(x.dtype) * F.silu(z)
+    if cache is not None:
+        K = p["conv_w"].shape[0]
+        cache["conv"].copy_(ctx[:, -(K - 1):])
+    return dense(p["out_proj"], y), cache
 
 
 # ------------------------------------------------------------------- mLSTM

@@ -188,7 +188,7 @@ def test_segmentize_copy_matches_jax(arch):
     assert plain(segmentize(ARCHS[arch].layer_specs())) == plain(jsegmentize(JARCHS[arch].layer_specs()))
 
 
-@pytest.mark.parametrize("arch", ["jamba-v0.1-52b", "deepseek-v3-671b", "qwen2-moe-a2.7b"])
+@pytest.mark.parametrize("arch", ["deepseek-v3-671b"])
 def test_unported_layers_name_their_roadmap_item(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Model(SMOKE_ARCHS[arch], device="cpu")
